@@ -10,7 +10,7 @@ Ports the semantics of:
     uint64 keys, streamed in chunks so memory stays bounded
 
 All generators are numpy-vectorised host code (graph construction is IO,
-not TPU compute) and deterministic given a seed.
+not device compute) and deterministic given a seed.
 """
 
 from __future__ import annotations
@@ -88,6 +88,52 @@ def rmat_graph(
         dst = dst + (1 << scale)
     keep = src != dst
     return np.stack([src[keep], dst[keep]], axis=1)
+
+
+GRAPH500_RMAT = (0.57, 0.19, 0.19, 0.05)
+
+
+def rmat_unique_edges(
+    n_nodes: int,
+    n_edges: int,
+    seed: int = 0,
+    p: Tuple[float, float, float, float] = GRAPH500_RMAT,
+    max_rounds: int = 64,
+) -> np.ndarray:
+    """Exactly ``n_edges`` distinct undirected R-MAT edges over ids
+    ``[0, n_nodes)`` — the Graph500 Kronecker recipe at any V.
+
+    Edges are drawn at scale ``ceil(log2 n_nodes)``; vertex labels are
+    permuted by the seed (Graph500 shuffles them too, so degree is not
+    tied to id order); edges with an endpoint ``>= n_nodes``, self-loops
+    and repeats of an undirected pair are dropped; rounds of draws
+    continue until ``n_edges`` remain, kept in draw order.
+    """
+    scale = max(1, int(np.ceil(np.log2(max(n_nodes, 2)))))
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(1 << scale)
+    keep_frac = (n_nodes / float(1 << scale)) ** 2
+    keys = np.zeros(0, np.int64)
+    edges = np.zeros((0, 2), np.int64)
+    for _ in range(max_rounds):
+        need = n_edges - len(keys)
+        if need <= 0:
+            break
+        draw = int(need * 1.5 / keep_frac) + 1024
+        e = perm[rmat_graph(scale, draw, p=p, seed=int(rng.integers(2**62)))]
+        e = e[(e < n_nodes).all(axis=1)]
+        k = np.minimum(e[:, 0], e[:, 1]) * n_nodes + np.maximum(e[:, 0], e[:, 1])
+        all_k = np.concatenate([keys, k])
+        all_e = np.concatenate([edges, e])
+        _, first = np.unique(all_k, return_index=True)
+        first = np.sort(first)
+        keys, edges = all_k[first], all_e[first]
+    if len(keys) < n_edges:
+        raise ValueError(
+            f"only {len(keys)} distinct R-MAT edges after {max_rounds} "
+            f"rounds; {n_edges} asked over {n_nodes} nodes"
+        )
+    return edges[:n_edges]
 
 
 def massive_bipartite_graph(

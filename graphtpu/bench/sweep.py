@@ -51,7 +51,7 @@ def sim_matrix_to_dict(
         row = sim[v] if sources is None else sim[r]
         if k < row.shape[0]:
             # argpartition first: full argsort per row over [n_src, V]
-            # dominates gold wall time at arxiv scale (VERDICT r2 weak #2)
+            # dominates gold wall time at arxiv scale
             cand = np.argpartition(-row, k)[:k]
             idx = cand[np.argsort(-row[cand])]
         else:
@@ -83,8 +83,8 @@ def gold_standard(
 ) -> Dict:
     """The reference gold standard: naive SimRank, 30 iterations, top-1000
     per row (``Test_u_u_TopSim_singleSample.java:17-18``,
-    ``Print.printByOrderAll``).  ``impl="spmm"`` runs the streaming-SpMM
-    form (same fixed point, f32-exact) for graphs past the dense V range;
+    ``Print.printByOrderAll``).  ``impl="spmm"`` runs the sparse-SpMM
+    form (same fixed point, f32 sums) for graphs past the dense V range;
     ``sources`` restricts the emitted rows (estimation subset)."""
     cfg = SimRankConfig(iterations=iterations)
     if impl == "spmm":

@@ -1,6 +1,6 @@
 """Random-walk statistical diagnostics.
 
-TPU-native equivalent of the reference's random-walk assumption tests
+Batched device equivalent of the reference's random-walk assumption tests
 (``simrank/random_test/RandomWalkTest.java:19-40``): exact vs Monte-Carlo
 path probabilities (``getPathPro``/``samplePathPro`` ``:87-131``), the
 double-walk meeting probability (``samplePathProDoubleWalk`` ``:142-167``),

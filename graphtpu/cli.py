@@ -51,22 +51,13 @@ def build_parser() -> argparse.ArgumentParser:
     sr.add_argument("--delimiter", default=None)
     sr.add_argument(
         "--engine", default="dense", choices=["dense", "spmm"],
-        help="dense MXU iterate or streaming-SpMM (sparse graphs)",
-    )
-    sr.add_argument(
-        "--mode", default="kahan", choices=["kahan", "fast", "fast16"],
-        help="spmm numerics: exact-f32 Kahan, fast f32, or bf16 "
-             "iterates with f32 accumulation (half HBM + bytes)",
+        help="dense matmul iterate or sparse CSR SpMM (sparse graphs)",
     )
     sr.add_argument(
         "--relabel", default="none",
         choices=["none", "bfs", "rcm", "degree"],
-        help="locality relabeling before compute (coalesced-DMA + gather "
-             "locality); output ids are mapped back",
-    )
-    sr.add_argument(
-        "--seg", type=int, default=1,
-        help="spmm: k-row coalesced DMA segments (pair with --relabel)",
+        help="locality relabeling before compute (gather locality); "
+             "output ids are mapped back",
     )
 
     uw = sub.add_parser("uniwalk", help="single-walk MC SimRank")
@@ -152,6 +143,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     import graphtpu
+    from graphtpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.cmd == "node2vec":
         from graphtpu.core.config import SGNSConfig, WalkConfig
@@ -300,12 +294,7 @@ def main(argv=None) -> int:
             order = np.asarray(ofn(g), np.int64)
             g, inv = relabel_graph(g, order)
         if args.engine == "spmm":
-            sim = exact_simrank_spmm(
-                g, cfg, weighted=args.weighted,
-                spmv_mode="fast" if args.mode == "fast16" else args.mode,
-                dtype=jnp.bfloat16 if args.mode == "fast16" else jnp.float32,
-                spmv_seg=args.seg,
-            )
+            sim = exact_simrank_spmm(g, cfg, weighted=args.weighted)
         else:
             sim = exact_simrank(g, cfg, weighted=args.weighted)
         vals, idx = topk_rows(jnp.asarray(sim), args.topk)

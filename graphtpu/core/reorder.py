@@ -22,7 +22,7 @@ fraction the coalescer would exploit.
 
 Reference context: the reference's Giraph runs inherit whatever ids the
 generator produced (``utils/GraphGeneratorBf.java``); locality is a
-TPU-side concern with no reference analog.
+device-side concern with no reference analog.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Graph traversal utilities — BFS hop distances.
 
 ``utils/BFSDist.java:18-40`` computes BFS hop distances from the first
-``maxStat`` sources into a byte matrix.  TPU form: level-synchronous
+``maxStat`` sources into a byte matrix.  Device form: level-synchronous
 frontier propagation straight over the CSR — the next frontier is a
 per-node OR of the current frontier over each node's neighbour segment,
 computed as a column gather + prefix-sum + row-boundary difference (no

@@ -2,9 +2,9 @@
 
 In the reference, walkers move between machines as Giraph vertex messages
 with a global superstep barrier (``giraph/SingleWalkVertex.java:66-89``;
-netty RPC + ZooKeeper).  The TPU-native equivalent (SURVEY.md §5) is a
+netty RPC + ZooKeeper).  The accelerator equivalent (SURVEY.md §5) is a
 single collective per superstep: walkers are bucketed by owner device and
-exchanged with ``all_to_all`` over ICI, fixed-capacity buckets keeping
+exchanged with ``all_to_all`` over the interconnect, fixed-capacity buckets keeping
 shapes static.  This is the framework's CP/ring analog — any algorithm
 that sends per-node state (walker frontiers, sim increments, TopSim mass)
 across a partitioned graph goes through :func:`exchange_by_owner`.
@@ -39,7 +39,7 @@ def narrowest_int_dtype(max_value: int):
     .java:38-51``, ``writables/Short_2MixMsgWritable.java``,
     ``writables/ByteArrayWritable.java``); here the analogous lever is
     shipping ``all_to_all`` buckets in int8/int16 when the id range fits,
-    cutting ICI bytes 2-4x on the comm-bound distributed walks."""
+    cutting interconnect bytes 2-4x on the comm-bound distributed walks."""
     if max_value < 2**7:
         return jnp.int8
     if max_value < 2**15:
@@ -124,7 +124,7 @@ def exchange_by_owner(
     ship as bfloat16 (accumulation stays f32 at the destination).  This
     is the byte/short-packed-writables optimization of the reference's
     giraph backend (``BatchSingleWalkVertex_Byte.java:38-51``) in its
-    TPU-native form — the packing is a pair of converts XLA fuses into
+    device form — the packing is a pair of converts XLA fuses into
     the bucket scatter/gather, only the ``all_to_all`` moves fewer bytes.
     """
     if wire_dtypes is None:

@@ -1,8 +1,8 @@
 """Device-mesh construction.
 
 The reference's distribution substrate is Giraph BSP over Hadoop RPC +
-ZooKeeper (``TopSimAll/.classpath:17-29``).  The TPU-native substrate is a
-``jax.sharding.Mesh`` over ICI/DCN with XLA collectives; a "superstep" is
+ZooKeeper (``TopSimAll/.classpath:17-29``).  The accelerator substrate is a
+``jax.sharding.Mesh`` over the device interconnect with XLA collectives; a "superstep" is
 one jitted collective step (SURVEY.md §2.3).
 
 Axes:

@@ -6,7 +6,7 @@ message (``giraph/SingleWalkVertex.java:66-89``).  On a partitioned graph
 the second-order bias needs TWO rows per hop: cur's row (to propose) and
 prev's row (the triangle test ``edge(prev, x)``).  Those rows live on
 different owners, so each hop ships the edge-exists probe with the
-exchange (VERDICT r2 #7):
+exchange:
 
   1. route walkers (wid, prev, cur) to owner(cur) — propose a T-panel of
      neighbours from the LOCAL CSR block (rejection sampling, the same

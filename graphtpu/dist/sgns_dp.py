@@ -1,12 +1,12 @@
-"""Sharded SGNS training step — the TPU replacement for hogwild.
+"""Sharded SGNS training step — the accelerator replacement for hogwild.
 
 The reference trains SGNS with 8 asynchronous hogwild threads inside
-gensim (``node2vec/src/main.py:97``).  The TPU-native mapping (SURVEY.md
+gensim (``node2vec/src/main.py:97``).  The accelerator mapping (SURVEY.md
 §2.3) is synchronous data parallelism with the embedding tables row-sharded
 on a ``model`` axis (tensor-parallel analog for the [V, D] tables) and the
 pair batch sharded on ``data``:
 
-  * syn0/syn1:  PartitionSpec('model', None)  — vocab rows over ICI
+  * syn0/syn1:  PartitionSpec('model', None)  — vocab rows over devices
   * batch:      PartitionSpec('data', ...)
   * gradients:  psum over 'data' (XLA inserts it from the shardings)
 

@@ -5,7 +5,7 @@ single machine: Giraph hash-partitions vertices over workers and every
 vertex's adjacency list lives only on its owner
 (``giraph/CombineBatchSingleWalkVertexReuse.java:39-48`` runs 10M vertices
 over 14 workers; ``BatchSingleWalkVertex_Byte.java:38-41`` 1M over 12).
-The TPU mapping partitions by *contiguous node range* so ownership is a
+The device mapping partitions by *contiguous node range* so ownership is a
 division, not a hash lookup: device ``d`` owns nodes
 ``[d*nodes_per, (d+1)*nodes_per)`` and holds only their CSR rows.
 

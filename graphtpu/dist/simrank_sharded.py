@@ -1,10 +1,11 @@
 """Sharded DENSE exact SimRank — S row-sharded, W replicated.
 
 S' = C * W S W^T with S sharded PartitionSpec('data', None) and W
-replicated: XLA splits the matmuls per shard and rides ICI for the
-contractions (reduce-scatter / all-gather as needed).  NOTE the memory
-profile: the dense [V, V] W is replicated on every device, so this form
-is a GSPMD collectives demo for MXU-bound small-V graphs only.  The
+replicated: XLA splits the matmuls per shard and inserts the
+collectives for the contractions (reduce-scatter / all-gather as
+needed).  NOTE the memory profile: the dense [V, V] W is replicated on
+every device, so this form is a GSPMD collectives demo for small-V,
+compute-bound graphs only.  The
 production scale-out of the reference's gold-standard computation (the
 14-worker Giraph cluster's role) is
 :func:`graphtpu.dist.spmm_sharded.sharded_simrank_spmm`, which shards
@@ -21,7 +22,12 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from graphtpu.core.config import SimRankConfig
-from graphtpu.core.graph import Graph, dense_adjacency, row_normalized
+from graphtpu.core.graph import (
+    Graph,
+    dense_adjacency,
+    pad_graph_nodes,
+    row_normalized,
+)
 
 
 def sharded_exact_simrank(
@@ -31,8 +37,14 @@ def sharded_exact_simrank(
     dtype=jnp.float32,
     matmul_precision: str = "highest",
 ) -> jax.Array:
-    """Dense [V, V] SimRank with S row-sharded over mesh axis 'data'."""
-    v = g.n_nodes
+    """Dense [V, V] SimRank with S row-sharded over mesh axis 'data'.
+
+    V is padded with isolated nodes to a multiple of the axis size (their
+    zero rows and columns of W leave the real block unchanged)."""
+    n_data = mesh.shape["data"]
+    v_real = g.n_nodes
+    v = -(-v_real // n_data) * n_data
+    g = pad_graph_nodes(g, v)
     row_shard = NamedSharding(mesh, P("data", None))
     repl = NamedSharding(mesh, P())
 
@@ -40,8 +52,9 @@ def sharded_exact_simrank(
     w = jax.device_put(row_normalized(a).astype(dtype), repl)
     eye = jnp.eye(v, dtype=dtype)
 
+    # eye is an argument: a closure would embed it as a [V, V] constant
     @partial(jax.jit, out_shardings=row_shard)
-    def run(w):
+    def run(w, eye):
         eye_s = jax.lax.with_sharding_constraint(eye, row_shard)
         def body(_, s):
             s = cfg.c * (w @ (s @ w.T))
@@ -51,4 +64,4 @@ def sharded_exact_simrank(
             s = jax.lax.fori_loop(0, cfg.iterations, body, eye_s)
         return s * (1 - eye_s)
 
-    return run(w)
+    return run(w, eye)[:v_real, :v_real]

@@ -4,7 +4,7 @@ The reference's gold-standard computation ran exact SimRank on a
 14-worker cluster (``simrank/SimRank.java:67-77`` semantics at
 distributed scale); round 2's ``sharded_exact_simrank`` densified A and
 replicated the [V, V] dense W per device — O(V²) everywhere, unusable
-past ~30k nodes (VERDICT r2 #4).  This module is the real thing:
+past ~30k nodes.  This module is the real thing:
 
 * **S is column-sharded**: device d holds ``S[:, c_d]`` — O(V²/n_dev).
 * **P is row-sharded**: device d holds a gather-reduction-tree plan for
@@ -24,7 +24,7 @@ past ~30k nodes (VERDICT r2 #4).  This module is the real thing:
 
 Per-device: memory O(V²/n_dev + E/n_dev), compute O(E·V/n_dev),
 communication O(V²/n_dev) per product — the textbook 1-D SUMMA
-decomposition, riding ICI.
+decomposition; the ``ppermute`` rides the device interconnect.
 """
 
 from __future__ import annotations
@@ -180,15 +180,14 @@ def make_sharded_iter(
     """Build the sharded-iteration executables: returns
     ``(plan, v, init, run_n, zero_diag)`` where ``run_n(s, n_iters, *lw)``
     advances ``n_iters`` iterations INSIDE one jit (a ``fori_loop`` —
-    no host dispatch or device round-trip per iteration; VERDICT r3
-    weak #8) and is independently lowerable for compiled memory
-    analysis (tools/exp_spmm_scaling.py)."""
+    no host dispatch or device round-trip per iteration) and is
+    independently lowerable for compiled memory analysis."""
     from jax import shard_map
 
     n_dev = mesh.devices.size
     axis = mesh.axis_names[0]
     v_real = g.n_nodes
-    v = -(-v_real // (128 * n_dev)) * (128 * n_dev)
+    v = -(-v_real // n_dev) * n_dev
     gp = pad_graph_nodes(g, v) if v != v_real else g
     if plan is None:
         plan = build_sharded_tree_plan(

@@ -2,10 +2,10 @@
 
 The 1-D ring (:mod:`graphtpu.dist.spmm_sharded`) ships each device's
 column block around the whole ring: ~V² ring bytes per device per
-product, which the committed analytic model puts at comm:compute 2.2×
-at the reference's V=1M/8-device shape (RESULTS_r4) — the design misses
-the ≥90% scaling bar exactly where the reference's 14-worker cluster
-ran (``giraph/CombineBatchSingleWalkVertexReuse.java:297``).  The 2-D
+product, which grows past the per-device compute at the reference's
+V=1M/8-device shape by an analytic bytes-per-step count — exactly where
+the reference's 14-worker cluster ran
+(``giraph/CombineBatchSingleWalkVertexReuse.java:297``).  The 2-D
 decomposition cuts per-device collective bytes to ~V²·(1/r + 1/c)
 (≈ 2V²/√n on a square grid):
 
@@ -29,9 +29,9 @@ decomposition cuts per-device collective bytes to ~V²·(1/r + 1/c)
   re-enters directly (same trick as the 1-D ring).
 
 Per device: memory O(V²/n + E/n), compute O(E·V/n), communication
-V²(1/r + 1/c + 2/n) per product vs the 1-D ring's ~V²(1 - 1/n) — with
-bf16 iterates (fast16) the model's V=1M/8dev comm:compute drops below
-1 (``tools/exp_spmm_scaling.py --model``).
+V²(1/r + 1/c + 2/n) per product vs the 1-D ring's ~V²(1 - 1/n); bf16
+iterates halve every collective payload.  Neither decomposition's
+communication has been measured on cards yet.
 """
 
 from __future__ import annotations
@@ -235,7 +235,7 @@ def make_summa_iter(
     assert mesh.axis_names == ("pr", "pc"), mesh.axis_names
     r, c = mesh.devices.shape
     v_real = g.n_nodes
-    mult = r * c * 8
+    mult = r * c
     v = -(-v_real // mult) * mult
     gp = pad_graph_nodes(g, v) if v != v_real else g
     if plan is None:
@@ -272,7 +272,7 @@ def make_summa_iter(
                 w_full = _tree_apply(levels, weights, blk, rows_per)
                 # reduce the c k-block partials; each device keeps 1/c
                 # of the rows (bytes/step: (V/r)²·(c-1)/c, in the block
-                # dtype — bf16 halves this in fast16 mode)
+                # dtype — bf16 iterates halve it)
                 w_strip = jax.lax.psum_scatter(
                     w_full.astype(x_blk.dtype), "pc",
                     scatter_dimension=0, tiled=True,

@@ -6,7 +6,7 @@ and at even steps a similarity-increment message is sent back to the
 source, accumulated in a bounded map.  Batched-window variants flush
 per-window results (``BatchSingleWalkVertex.java:108-133``).
 
-TPU mapping: sources are sharded over the mesh ('data' axis = the Giraph
+Device mapping: sources are sharded over the mesh ('data' axis = the Giraph
 worker partition); walkers route between node owners with the
 :mod:`graphtpu.dist.frontier` all_to_all exchange (one jitted superstep
 per hop); each home shard then computes its sources' first-meet increments
@@ -66,7 +66,7 @@ def distributed_uniwalk_simrank(
     at ``max_walk_ints`` int32s across the mesh: larger jobs loop over
     internal source windows (the BATCH semantics,
     ``SingleWalkMasterCompute.java:29-35``), so the entry has no hidden
-    replicated-scale ceiling (VERDICT r2 weak #6).
+    replicated-scale ceiling.
     """
     if key is None:
         key = jax.random.key(0)
@@ -140,7 +140,7 @@ def distributed_uniwalk_simrank_reuse(
     ``2*step + reuse_times - 1``; offset ``o`` of each walk is a fresh
     sample whose *source* is ``path[o]`` — an arbitrary node, so (as in
     Giraph, where sim-increment messages are routed to the source's
-    owner) increments must cross shards.  The TPU mapping builds each
+    owner) increments must cross shards.  The device mapping builds each
     device's flat (src, tgt, val) item stream, routes items home with ONE
     ``all_to_all`` (the Giraph sim-message routing), and reduces each
     shard's received items straight to top-k with the sort-based

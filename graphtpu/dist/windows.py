@@ -7,7 +7,7 @@ vertices run their walks, flush their top-k straight to per-partition HDFS
 files and vote to halt (``giraph/BatchSingleWalkVertex.java:108-133``).
 Fault tolerance is "resume at the last completed window" (SURVEY.md §5).
 
-TPU form: the device loop processes one window per pass, streams its top-k
+Device form: the device loop processes one window per pass, streams its top-k
 to a per-window part file, and persists a JSON cursor.  Killing the job at
 any point loses at most one window.
 """

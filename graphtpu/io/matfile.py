@@ -11,17 +11,17 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
-import scipy.sparse as sp
-from scipy.io import loadmat
 
 
-def load_blogcatalog(path: str) -> Tuple[sp.spmatrix, sp.spmatrix]:
+def load_blogcatalog(path: str) -> Tuple["sp.spmatrix", "sp.spmatrix"]:
     """Return (network, group) sparse matrices."""
+    from scipy.io import loadmat  # off the main path: .mat inputs only
+
     mat = loadmat(path)
     return mat["network"], mat["group"]
 
 
-def labels_to_lists(group: sp.spmatrix):
+def labels_to_lists(group: "sp.spmatrix"):
     """[{label indices} per node] from the sparse multi-label matrix, the way
     ``classify.py:216-231`` builds y_train/y_test."""
     coo = group.tocoo()

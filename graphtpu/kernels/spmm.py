@@ -3,20 +3,15 @@
 SimRank's operator form S' = C·P·S·Pᵀ (``simrank/SimRank.java:67-77``)
 needs the sparse-dense product P·X where P is the row-stochastic
 adjacency: row i of P·X is ``(1/d_i) Σ_{u∈N(i)} X[u, :]`` — a segment sum
-of gathered rows.  The dense form costs V³ MXU FLOPs; at real-graph
-density (E ≪ V²) the SpMM form is bandwidth-bound at ~E·V reads instead.
+of gathered rows.  The dense form costs V³ FLOPs; at real-graph density
+(E ≪ V²) the SpMM form is bandwidth-bound at ~E·V reads instead.
 
-TPU constraints shape the design:
+Two numerical constraints shape the design:
 
-  * scatter-add with many update rows serialises (the embedding cliff) —
-    so there are NO scatters here, only gathers;
   * a global cumsum + boundary-diff loses precision catastrophically
     (segment value = difference of two O(E)-magnitude prefixes), so the
     1e-6 gold-parity requirement rules it out;
-  * variable-length CSR segments are hostile to static shapes;
-  * XLA's row gather tops out at ~145 GB/s on v5e (measured,
-    tools/exp_gather_variants.py) — far under HBM — so the hot level
-    runs as a Pallas kernel with a ring of pipelined row DMAs.
+  * variable-length CSR segments are hostile to static shapes.
 
 The plan is a **padded W-ary reduction tree** built host-side once per
 graph: every CSR row is chopped into mini-rows of W slots, level 1
@@ -27,7 +22,8 @@ carries a weight: edge weight (or 1) at level 1, validity at deeper
 levels, with pad slots pointing at row 0 with weight 0, and the final
 1/Σw row scale folded into the last level's weights — so one primitive,
 ``gather_rows_sum(slots, weights, table)``, implements every level, and
-the deg==0 → zero-row rule (``SimRank.java:69``) costs nothing.
+the deg==0 → zero-row rule (``SimRank.java:69``) costs nothing.  Each
+level is plain XLA: the W gathers, weights and sum fuse into one loop.
 
 Weighted P follows ``weighted/WeightedSimRank.java:68-93``.
 """
@@ -35,19 +31,14 @@ Weighted P follows ``weighted/WeightedSimRank.java:68-93``.
 from __future__ import annotations
 
 import dataclasses
-import functools
-import os
 from functools import partial
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 from graphtpu.core.graph import Graph, host_csr
-
-_LANE = 128          # TPU lane width; mini-row blocks sized in multiples
-_BM = 256            # mini-rows per Pallas grid step (before VMEM cap)
 
 
 @partial(
@@ -64,8 +55,8 @@ class ReductionTree:
     point at row 0.  ``weights[k]``: float32[M_k, W] per-slot factors
     (edge weight / Σw at level 0 when the tree is single-level, validity
     or final row scale deeper).  ``levels[-1]`` yields ``n_nodes`` real
-    rows in node order (padded to a block multiple; ``real_rows[k]`` is
-    the unpadded M_k).
+    rows in node order (padded to a multiple of ``block``;
+    ``real_rows[k]`` is the unpadded M_k).
     """
 
     levels: Tuple[jax.Array, ...]
@@ -86,7 +77,7 @@ def build_reduction_tree(
     g: Graph,
     width: int = 8,
     weighted: bool = False,
-    block: int = _BM,
+    block: int = 1,
     row_scale: Optional[np.ndarray] = None,
 ) -> ReductionTree:
     """Host-side plan construction from CSR (numpy; one pass per level).
@@ -160,9 +151,10 @@ def build_reduction_tree(
     # fold the 1/deg (or 1/Σw) row scale into the last level's weights
     weights[-1] = weights[-1] * scale[:, None]
 
-    # pad each level's row count to the kernel block multiple; deeper
-    # levels index the PREVIOUS level's padded layout, which matches
-    # because slot indices are into the unpadded prefix
+    # pad each level's row count to a block multiple (the sharded plans
+    # stack per-device trees); deeper levels index the PREVIOUS level's
+    # padded layout, which matches because slot indices are into the
+    # unpadded prefix
     real = tuple(l.shape[0] for l in levels)
     levels = [_pad_rows(l, block, 0) for l in levels]
     weights = [_pad_rows(x, block, 0.0) for x in weights]
@@ -177,669 +169,14 @@ def build_reduction_tree(
 
 
 # ---------------------------------------------------------------------------
-# streaming CSR SpMV plan: one (slot, weight, row) item per edge, row-major
-# ---------------------------------------------------------------------------
-
-
-@partial(
-    jax.tree_util.register_dataclass,
-    data_fields=["slots", "wts", "pos", "raw_wts", "scales"],
-    meta_fields=["n_nodes", "n_items", "block_items", "uniform", "seg_k"],
-)
-@dataclasses.dataclass(frozen=True)
-class SpmvStream:
-    """Flat row-major item stream for the streaming Pallas SpMM.
-
-    ``slots[t]``: source row of X to gather; ``wts[t]``: its coefficient
-    (edge weight × 1/Σw row scale folded in); ``pos[t]``: output row —
-    NONDECREASING (CSR order), so each output row is one contiguous run.
-    Isolated nodes carry one (slot 0, weight 0) dummy item so every
-    output row is written exactly once (deg==0 → zero row,
-    ``SimRank.java:69``).  Padded to a block multiple with zero-weight
-    items on the last row.
-
-    ``seg_k > 1``: COALESCED stream — each item is one ``seg_k``-row DMA
-    starting at ``slots[t]`` (rows ``slots[t]..slots[t]+seg_k-1`` of the
-    table, a single contiguous HBM burst), with per-sub-row coefficients
-    ``wts[t*seg_k + j]`` (0 for absent rows).  Built by
-    :func:`build_spmv_segments` from maximal runs of CONSECUTIVE
-    neighbour ids — the payoff of :mod:`graphtpu.core.reorder`'s
-    locality relabeling (VERDICT r4 #2: fewer, longer DMAs against the
-    per-transfer overhead that holds the item kernel at ~50% of HBM
-    roofline).
-    """
-
-    slots: jax.Array    # int32[T]
-    wts: jax.Array      # float32[T * seg_k]: folded coefficients
-    pos: jax.Array      # int32[T]
-    raw_wts: jax.Array  # float32[T * seg_k]: edge weight only
-    scales: jax.Array   # float32[T]: the item's OUTPUT-row 1/Σw
-    n_nodes: int
-    n_items: int
-    block_items: int
-    uniform: bool       # all raw weights == 1 (skip per-item multiply)
-    seg_k: int = 1      # table rows per DMA
-
-
-def build_spmv_stream(
-    g: Graph, weighted: bool = False, block_items: int = 1024
-) -> SpmvStream:
-    """Host-side stream construction from CSR (numpy, no padding waste)."""
-    rp_h, col_h, w_h, _ = host_csr(g)
-    rp = np.asarray(rp_h).astype(np.int64)
-    col = np.asarray(col_h).astype(np.int64)
-    v = g.n_nodes
-    d = np.diff(rp)
-    wsrc = (
-        np.asarray(w_h, np.float32)
-        if (weighted and w_h is not None)
-        else np.ones(len(col), np.float32)
-    )
-    denom = np.zeros(v, np.float64)
-    np.add.at(denom, np.repeat(np.arange(v), d), wsrc)
-    scale = np.where(denom > 0, 1.0 / np.maximum(denom, 1e-30), 0.0)
-
-    # per-row item counts: max(deg, 1) — isolated rows get a dummy item
-    cnt = np.maximum(d, 1)
-    t_real = int(cnt.sum())
-    pos = np.repeat(np.arange(v), cnt).astype(np.int32)
-    slots = np.zeros(t_real, np.int64)
-    wts = np.zeros(t_real, np.float32)
-    start = np.cumsum(cnt) - cnt
-    # scatter real edges into their stream positions
-    e_idx = np.arange(t_real) - start[pos]
-    real = e_idx < d[pos]
-    slots[real] = col[rp[pos[real]] + e_idx[real]]
-    wts[real] = (wsrc * scale.astype(np.float32)[np.repeat(np.arange(v), d)])[
-        rp[pos[real]] + e_idx[real]
-    ]
-    raw = np.zeros(t_real, np.float32)
-    raw[real] = wsrc[rp[pos[real]] + e_idx[real]]
-    scales = scale.astype(np.float32)[pos]
-    pad = (-t_real) % block_items
-    if pad:
-        # pad items run in a dedicated dummy row v (zero scale), so modes
-        # that skip the per-item weight multiply stay uncontaminated; the
-        # kernel writes v+1 rows and the caller trims
-        slots = np.concatenate([slots, np.zeros(pad, np.int64)])
-        wts = np.concatenate([wts, np.zeros(pad, np.float32)])
-        raw = np.concatenate([raw, np.zeros(pad, np.float32)])
-        scales = np.concatenate([scales, np.zeros(pad, np.float32)])
-        pos = np.concatenate([pos, np.full(pad, v, np.int32)])
-    uniform = bool(np.all(wsrc == 1.0))
-    return SpmvStream(
-        slots=jnp.asarray(slots.astype(np.int32)),
-        wts=jnp.asarray(wts),
-        pos=jnp.asarray(pos),
-        raw_wts=jnp.asarray(raw),
-        scales=jnp.asarray(scales),
-        n_nodes=v,
-        n_items=t_real,
-        block_items=block_items,
-        uniform=uniform,
-    )
-
-
-def build_spmv_segments(
-    g: Graph, weighted: bool = False, block_items: int = 1024, k: int = 2
-) -> SpmvStream:
-    """Coalesced stream: maximal runs of CONSECUTIVE neighbour ids are
-    chopped into ``k``-row segments, each one contiguous HBM DMA.
-
-    With a locality relabeling (:mod:`graphtpu.core.reorder`, adjacent-
-    slot fraction 0.62 after BFS order) the mean run length is ~2.5, so
-    k=2 cuts DMA count ~1.7x with ≤~15% extra bytes (singleton runs
-    read one wasted row, zero-weighted).  Semantics identical to
-    :func:`build_spmv_stream`; same kernels consume both forms.
-    """
-    assert k >= 1
-    if k == 1:
-        return build_spmv_stream(g, weighted=weighted,
-                                 block_items=block_items)
-    rp_h, col_h, w_h, _ = host_csr(g)
-    rp = np.asarray(rp_h).astype(np.int64)
-    col = np.asarray(col_h).astype(np.int64)
-    v = g.n_nodes
-    d = np.diff(rp)
-    e_total = int(rp[-1])
-    wsrc = (
-        np.asarray(w_h, np.float32)
-        if (weighted and w_h is not None)
-        else np.ones(e_total, np.float32)
-    )
-    denom = np.zeros(v, np.float64)
-    row_of_e = np.repeat(np.arange(v), d)
-    np.add.at(denom, row_of_e, wsrc)
-    scale = np.where(denom > 0, 1.0 / np.maximum(denom, 1e-30), 0.0).astype(
-        np.float32
-    )
-    # sort neighbours within each row (consecutive-run detection needs it)
-    order = np.lexsort((col, row_of_e))
-    col = col[order]
-    wsrc = wsrc[order]
-
-    if e_total:
-        prev_consec = np.zeros(e_total, bool)
-        prev_consec[1:] = (col[1:] == col[:-1] + 1) & (
-            row_of_e[1:] == row_of_e[:-1]
-        )
-        run_start = ~prev_consec
-        run_id = np.cumsum(run_start) - 1
-        run_first = np.flatnonzero(run_start)
-        pos_in_run = np.arange(e_total) - run_first[run_id]
-        seg_start = (pos_in_run % k) == 0
-        seg_id = np.cumsum(seg_start) - 1
-        seg_first_e = np.flatnonzero(seg_start)
-        seg_slot = col[seg_first_e]
-        seg_row = row_of_e[seg_first_e].astype(np.int64)
-        # clamp so every k-row window stays inside the table; the
-        # within-window offset shifts the weights accordingly
-        start_c = np.minimum(seg_slot, max(v - k, 0))
-        j_in = (col - start_c[seg_id]).astype(np.int64)
-        assert j_in.max() < k
-        n_seg = len(seg_first_e)
-        w_fold = np.zeros((n_seg, k), np.float32)
-        w_raw = np.zeros((n_seg, k), np.float32)
-        w_fold[seg_id, j_in] = wsrc * scale[row_of_e]
-        w_raw[seg_id, j_in] = wsrc
-        seg_scales = scale[seg_row]
-    else:
-        n_seg = 0
-        start_c = np.zeros(0, np.int64)
-        seg_row = np.zeros(0, np.int64)
-        w_fold = np.zeros((0, k), np.float32)
-        w_raw = np.zeros((0, k), np.float32)
-        seg_scales = np.zeros(0, np.float32)
-
-    # isolated rows: one zero-weight dummy segment each, then restore
-    # nondecreasing output-row order
-    iso = np.flatnonzero(d == 0)
-    if len(iso):
-        start_c = np.concatenate([start_c, np.zeros(len(iso), np.int64)])
-        seg_row = np.concatenate([seg_row, iso])
-        w_fold = np.concatenate([w_fold, np.zeros((len(iso), k), np.float32)])
-        w_raw = np.concatenate([w_raw, np.zeros((len(iso), k), np.float32)])
-        seg_scales = np.concatenate(
-            [seg_scales, np.zeros(len(iso), np.float32)]
-        )
-        srt = np.argsort(seg_row, kind="stable")
-        start_c, seg_row = start_c[srt], seg_row[srt]
-        w_fold, w_raw, seg_scales = w_fold[srt], w_raw[srt], seg_scales[srt]
-    t_real = len(seg_row)
-
-    pad = (-t_real) % block_items
-    if pad:
-        start_c = np.concatenate([start_c, np.zeros(pad, np.int64)])
-        seg_row = np.concatenate([seg_row, np.full(pad, v, np.int64)])
-        w_fold = np.concatenate([w_fold, np.zeros((pad, k), np.float32)])
-        w_raw = np.concatenate([w_raw, np.zeros((pad, k), np.float32)])
-        seg_scales = np.concatenate([seg_scales, np.zeros(pad, np.float32)])
-    return SpmvStream(
-        slots=jnp.asarray(start_c.astype(np.int32)),
-        wts=jnp.asarray(w_fold.reshape(-1)),
-        pos=jnp.asarray(seg_row.astype(np.int32)),
-        raw_wts=jnp.asarray(w_raw.reshape(-1)),
-        scales=jnp.asarray(seg_scales),
-        n_nodes=v,
-        n_items=t_real,
-        block_items=block_items,
-        uniform=False,   # segment coefficients are masks; always multiply
-        seg_k=k,
-    )
-
-
-def _spmv_kernel(
-    c, nbuf, table_scale, unroll, seg_k, slots_ref, wts_ref, pos_ref, table_ref, out_ref, buf, acc, rd_sems, wr_sems, state
-):
-    """Streaming CSR SpMV: DMA each item's source row through an NBUF ring,
-    Kahan-accumulate runs of equal ``pos`` in a double-buffered VMEM
-    accumulator, flush each finished row to HBM with a write DMA.
-
-    ``seg_k > 1``: coalesced items — each DMA moves ``seg_k`` contiguous
-    table rows in one burst and the item combines them with per-sub-row
-    weights ``wts[t*seg_k + j]`` (one Kahan add per item of the combined
-    row; see :func:`build_spmv_segments`).
-
-    ``table_scale``: when not None, the gathered table row r is
-    transformed IN VMEM to ``where(col == r, 1, table_scale * row)`` —
-    the SimRank scale-and-diag-pin stage fused into the consumer's
-    gather, saving a full iterate-sized read+write pass per iteration
-    (``simrank/SimRank.java:27-30`` semantics).
-
-    state (SMEM int32[4]): [current_row, active_zone, pending_wr0,
-    pending_wr1].  acc (VMEM float32[2*2*c]): two zones of (sum, comp).
-    Grid steps run sequentially on the core, so scratch persists and rows
-    may span item blocks.
-    """
-    import jax.lax as lax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    tb = slots_ref.shape[0]
-    step = pl.program_id(0)
-    nsteps = pl.num_programs(0)
-
-    @pl.when(step == 0)
-    def _():
-        state[0] = -1
-        state[1] = 0
-        state[2] = 0
-        state[3] = 0
-
-    def rd_dma(t):
-        return pltpu.make_async_copy(
-            table_ref.at[pl.ds(slots_ref[t] * c, seg_k * c)],
-            buf.at[pl.ds((t % nbuf) * seg_k * c, seg_k * c)],
-            rd_sems.at[t % nbuf],
-        )
-
-    for t in range(nbuf):  # warmup (tb >= nbuf)
-        rd_dma(t).start()
-
-    def wr_dma(zone, row):
-        return pltpu.make_async_copy(
-            acc.at[pl.ds(zone * 2 * c, c)],
-            out_ref.at[pl.ds(row * c, c)],
-            wr_sems.at[zone],
-        )
-
-    if table_scale is not None:
-        # generated ONCE per grid step and reused by every item (an
-        # in-loop iota materialises per item and costs a full VPU pass)
-        col_iota = lax.broadcasted_iota(jnp.int32, (1, c), 1).reshape(c)
-
-    def one_item(t):
-        row_pos = pos_ref[t]
-        prev = state[0]
-        zone = state[1]
-        is_new = row_pos != prev
-
-        @pl.when(is_new)
-        def _():
-            # flush the finished row (not on the very first item)
-            @pl.when(prev >= 0)
-            def _():
-                wr_dma(zone, prev).start()
-                state[2 + zone] = 1
-
-            nz = 1 - zone
-            # the new zone's previous write must have landed before reuse
-            @pl.when(state[2 + nz] == 1)
-            def _():
-                wr_dma(nz, 0).wait()  # sem identity is what matters
-                state[2 + nz] = 0
-
-            state[0] = row_pos
-            state[1] = nz
-
-        z = state[1]
-        rd_dma(t).wait()
-        if seg_k == 1:
-            raw = buf[pl.ds((t % nbuf) * c, c)]
-            if table_scale is not None:
-                raw = jnp.where(
-                    col_iota == slots_ref[t], 1.0, table_scale * raw
-                )
-            row = raw * wts_ref[t]
-        else:
-            base = (t % nbuf) * seg_k * c
-            row = None
-            for j in range(seg_k):
-                sub = buf[pl.ds(base + j * c, c)]
-                if table_scale is not None:
-                    sub = jnp.where(
-                        col_iota == slots_ref[t] + j, 1.0,
-                        table_scale * sub,
-                    )
-                sub = sub * wts_ref[t * seg_k + j]
-                row = sub if row is None else row + sub
-
-        @pl.when(is_new)
-        def _():
-            acc[pl.ds(z * 2 * c, c)] = row
-            acc[pl.ds(z * 2 * c + c, c)] = jnp.zeros((c,), jnp.float32)
-
-        @pl.when(jnp.logical_not(is_new))
-        def _():
-            # Kahan: keeps long power-law rows at ~eps instead of O(d)·eps
-            s0 = acc[pl.ds(z * 2 * c, c)]
-            comp = acc[pl.ds(z * 2 * c + c, c)]
-            y = row - comp
-            t2 = s0 + y
-            acc[pl.ds(z * 2 * c + c, c)] = (t2 - s0) - y
-            acc[pl.ds(z * 2 * c, c)] = t2
-
-        @pl.when(t + nbuf < tb)
-        def _():
-            rd_dma(t + nbuf).start()
-
-    # ``unroll`` straightline item bodies per loop step: the scalar
-    # core's loop-carry + branch scheduling overhead amortises G-wide
-    def body(i, _):
-        if unroll == 1:
-            one_item(i)
-        else:
-            for g in range(unroll):
-                one_item(i * unroll + g)
-        return 0
-
-    lax.fori_loop(0, tb // unroll, body, 0)
-
-    @pl.when(step == nsteps - 1)
-    def _():
-        # final row flush + drain all pending writes before kernel exit
-        zone = state[1]
-        wr_dma(zone, state[0]).start()
-        wr_dma(zone, 0).wait()
-        nz = 1 - zone
-
-        @pl.when(state[2 + nz] == 1)
-        def _():
-            wr_dma(nz, 0).wait()
-            state[2 + nz] = 0
-
-
-def _spmv_kernel_fast(
-    c, nbuf, weighted, table_scale, unroll, seg_k, slots_ref, wts_ref,
-    pos_ref, scl_ref, table_ref, out_ref, buf, acc, obuf, rd_sems, wr_sems,
-    state, fstate
-):
-    """Streaming CSR SpMV, throughput variant: plain f32 run accumulation
-    with the 1/Σw row scale applied ONCE at row flush (a per-ROW VPU pass
-    instead of Kahan's four extra per-ITEM passes).  Unweighted streams
-    skip the per-item multiply entirely.  Row-sum error is the naive-sum
-    bound O(d)·eps — use the Kahan kernel for gold-standard runs.
-
-    state (SMEM int32[4]): [current_row, active_zone, pending_wr0,
-    pending_wr1]; fstate (SMEM f32[2]): per-zone row scale.
-    acc (VMEM float32[2*c]): two plain zones; accumulation is ALWAYS
-    f32 — a bf16 table ("fast16": half the DMA bytes, half the iterate
-    HBM) converts on read and rounds once per ROW at flush via ``obuf``.
-    """
-    import jax.lax as lax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    tb = slots_ref.shape[0]
-    step = pl.program_id(0)
-    nsteps = pl.num_programs(0)
-
-    @pl.when(step == 0)
-    def _():
-        state[0] = -1
-        state[1] = 0
-        state[2] = 0
-        state[3] = 0
-        fstate[0] = 0.0
-        fstate[1] = 0.0
-
-    def rd_dma(t):
-        return pltpu.make_async_copy(
-            table_ref.at[pl.ds(slots_ref[t] * c, seg_k * c)],
-            buf.at[pl.ds((t % nbuf) * seg_k * c, seg_k * c)],
-            rd_sems.at[t % nbuf],
-        )
-
-    for t in range(nbuf):  # warmup (tb >= nbuf)
-        rd_dma(t).start()
-
-    def wr_dma(zone, row):
-        return pltpu.make_async_copy(
-            obuf.at[pl.ds(zone * c, c)],
-            out_ref.at[pl.ds(row * c, c)],
-            wr_sems.at[zone],
-        )
-
-    def flush(zone, row):
-        # one conversion/copy per ROW at flush: f32 accumulation, output
-        # rounded to the table dtype (bf16 in fast16 mode)
-        obuf[pl.ds(zone * c, c)] = (
-            acc[pl.ds(zone * c, c)] * fstate[zone]
-        ).astype(obuf.dtype)
-        wr_dma(zone, row).start()
-        state[2 + zone] = 1
-
-    if table_scale is not None:
-        col_iota = lax.broadcasted_iota(jnp.int32, (1, c), 1).reshape(c)
-
-    def one_item(t):
-        row_pos = pos_ref[t]
-        prev = state[0]
-        zone = state[1]
-        is_new = row_pos != prev
-
-        @pl.when(is_new)
-        def _():
-            @pl.when(prev >= 0)
-            def _():
-                flush(zone, prev)
-
-            nz = 1 - zone
-
-            @pl.when(state[2 + nz] == 1)
-            def _():
-                wr_dma(nz, 0).wait()  # sem identity is what matters
-                state[2 + nz] = 0
-
-            state[0] = row_pos
-            state[1] = nz
-            fstate[nz] = scl_ref[t]
-
-        z = state[1]
-        rd_dma(t).wait()
-        if seg_k == 1:
-            row = buf[pl.ds((t % nbuf) * c, c)].astype(jnp.float32)
-            if table_scale is not None:
-                row = jnp.where(
-                    col_iota == slots_ref[t], 1.0, table_scale * row
-                )
-            if weighted:
-                row = row * wts_ref[t]
-        else:
-            base = (t % nbuf) * seg_k * c
-            row = None
-            for j in range(seg_k):
-                sub = buf[pl.ds(base + j * c, c)].astype(jnp.float32)
-                if table_scale is not None:
-                    sub = jnp.where(
-                        col_iota == slots_ref[t] + j, 1.0,
-                        table_scale * sub,
-                    )
-                sub = sub * wts_ref[t * seg_k + j]
-                row = sub if row is None else row + sub
-
-        @pl.when(is_new)
-        def _():
-            acc[pl.ds(z * c, c)] = row
-
-        @pl.when(jnp.logical_not(is_new))
-        def _():
-            acc[pl.ds(z * c, c)] = acc[pl.ds(z * c, c)] + row
-
-        @pl.when(t + nbuf < tb)
-        def _():
-            rd_dma(t + nbuf).start()
-
-    def body(i, _):
-        if unroll == 1:
-            one_item(i)
-        else:
-            for g in range(unroll):
-                one_item(i * unroll + g)
-        return 0
-
-    lax.fori_loop(0, tb // unroll, body, 0)
-
-    @pl.when(step == nsteps - 1)
-    def _():
-        zone = state[1]
-        flush(zone, state[0])
-        wr_dma(zone, 0).wait()
-        nz = 1 - zone
-
-        @pl.when(state[2 + nz] == 1)
-        def _():
-            wr_dma(nz, 0).wait()
-            state[2 + nz] = 0
-
-
-def spmv_pallas(
-    stream: SpmvStream,
-    x: jax.Array,
-    nbuf: int = 16,
-    interpret: bool = False,
-    mode: str = "kahan",
-) -> jax.Array:
-    """P @ x via the streaming kernel: [V, C] -> [V, C], C % 1024 == 0.
-
-    DMA traffic is exactly (E + isolated) row reads + (V+1) row writes —
-    no padding waste, any degree distribution, one pass.  ``mode``:
-    "kahan" (exact-f32 compensated row sums, the gold path) or "fast"
-    (plain run sums + flush-time row scaling — fewer VPU/VMEM passes per
-    item, naive-sum O(d)·eps row error).
-    """
-    n, c = x.shape
-    out = spmv_pallas_flat(
-        stream, x.reshape(-1), c, nbuf=nbuf, interpret=interpret, mode=mode
-    )
-    return out.reshape(stream.n_nodes + 1, c)[: stream.n_nodes]
-
-
-def spmv_pallas_flat(
-    stream: SpmvStream,
-    x_flat: jax.Array,
-    c: int,
-    nbuf: int = 16,
-    interpret: bool = False,
-    mode: str = "kahan",
-    table_scale: float | None = None,
-    unroll: int | None = None,
-) -> jax.Array:
-    """Flat-layout form of :func:`spmv_pallas`: ``x_flat`` is row-major
-    [>=V, C] flattened to 1-D, returns the raw ((V+1)*C,) output (row V is
-    the pad-item dummy row).  Keeping multi-GB iterates 1-D end-to-end
-    avoids the tiled->linear relayout copy XLA inserts when a [V, V]
-    operand is reshaped at the kernel boundary — at arxiv scale that copy
-    alone is 5.6 GB of HLO temp and pushed ``exact_simrank_spmm`` over
-    HBM.  All stream slots are < V, so ``x_flat`` may be (V*C,) or the
-    ((V+1)*C,) output of a previous call (the dummy row is never read).
-
-    ``table_scale``: fuse the SimRank ``where(diag, 1, c*S)`` table
-    transform into each row gather (see ``_spmv_kernel``) — the caller
-    passes the RAW previous output and skips its own scale-pin pass.
-    """
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    x = x_flat
-    v = stream.n_nodes
-    assert x.ndim == 1 and x.size >= v * c, (x.shape, v, c)
-    assert c % 1024 == 0, c
-    assert mode == "fast" or x.dtype == jnp.float32, (
-        "kahan mode is the exact-f32 path; bf16 tables use mode='fast'"
-    )
-    if unroll is None:
-        unroll = int(os.environ.get("GRAPHTPU_SPMV_UNROLL", "1"))
-    tb = stream.block_items
-    assert tb % unroll == 0, (tb, unroll)
-    sk = stream.seg_k
-    t_total = stream.slots.shape[0]
-    grid = (t_total // tb,)
-    smem = lambda: pl.BlockSpec((tb,), lambda i: (i,), memory_space=pltpu.SMEM)
-    # per-sub-row coefficients for coalesced streams (seg_k wide)
-    wmem = lambda: pl.BlockSpec(
-        (tb * sk,), lambda i: (i,), memory_space=pltpu.SMEM
-    )
-    if mode == "fast":
-        kernel = pl.pallas_call(
-            _ft.partial(_spmv_kernel_fast, c, nbuf, not stream.uniform,
-                        table_scale, unroll, sk),
-            out_shape=jax.ShapeDtypeStruct(((v + 1) * c,), x.dtype),
-            grid=grid,
-            in_specs=[smem(), wmem(), smem(), smem(),
-                      pl.BlockSpec(memory_space=pltpu.ANY)],
-            out_specs=pl.BlockSpec(memory_space=pltpu.ANY),
-            scratch_shapes=[
-                pltpu.VMEM((nbuf * sk * c,), x.dtype),
-                pltpu.VMEM((2 * c,), jnp.float32),
-                pltpu.VMEM((2 * c,), x.dtype),
-                pltpu.SemaphoreType.DMA((nbuf,)),
-                pltpu.SemaphoreType.DMA((2,)),
-                pltpu.SMEM((4,), jnp.int32),
-                pltpu.SMEM((2,), jnp.float32),
-            ],
-            compiler_params=pltpu.CompilerParams(
-                has_side_effects=True,
-                # the item-block grid carries VMEM/SMEM state across
-                # steps (rows span blocks); "arbitrary" pins the grid
-                # to sequential execution on one core — newer Mosaic
-                # schedulers otherwise may parallelise/reorder steps,
-                # which deadlocks the zone semaphores ON HARDWARE
-                # (wedges the worker; interpret mode cannot catch it)
-                dimension_semantics=("arbitrary",),
-            ),
-            interpret=interpret,
-        )
-        return kernel(
-            stream.slots, stream.raw_wts, stream.pos, stream.scales, x
-        )
-    kernel = pl.pallas_call(
-        _ft.partial(_spmv_kernel, c, nbuf, table_scale, unroll, sk),
-        out_shape=jax.ShapeDtypeStruct(((v + 1) * c,), x.dtype),
-        grid=grid,
-        in_specs=[smem(), wmem(), smem(),
-                  pl.BlockSpec(memory_space=pltpu.ANY)],
-        out_specs=pl.BlockSpec(memory_space=pltpu.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((nbuf * sk * c,), x.dtype),
-            pltpu.VMEM((2 * 2 * c,), jnp.float32),
-            pltpu.SemaphoreType.DMA((nbuf,)),
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SMEM((4,), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-                has_side_effects=True,
-                # the item-block grid carries VMEM/SMEM state across
-                # steps (rows span blocks); "arbitrary" pins the grid
-                # to sequential execution on one core — newer Mosaic
-                # schedulers otherwise may parallelise/reorder steps,
-                # which deadlocks the zone semaphores ON HARDWARE
-                # (wedges the worker; interpret mode cannot catch it)
-                dimension_semantics=("arbitrary",),
-            ),
-        interpret=interpret,
-    )
-    return kernel(stream.slots, stream.wts, stream.pos, x)
-
-
-def spmv_stream_xla(stream: SpmvStream, x: jax.Array) -> jax.Array:
-    """XLA oracle of the streaming plan (CPU tests): segment accumulate
-    via the gather + boundary arithmetic of the item run structure."""
-    k = stream.seg_k
-    if k == 1:
-        rows = x[stream.slots] * stream.wts[:, None]
-    else:
-        w = stream.wts.reshape(-1, k)
-        rows = None
-        for j in range(k):
-            r = x[stream.slots + j] * w[:, j][:, None]
-            rows = r if rows is None else rows + r
-    return jax.ops.segment_sum(
-        rows, stream.pos, num_segments=stream.n_nodes
-    )
-
-
-# ---------------------------------------------------------------------------
 # level primitive: out[m, :] = sum_j weights[m, j] * table[slots[m, j], :]
 # ---------------------------------------------------------------------------
 
 
-def gather_rows_sum_xla(
+def gather_rows_sum(
     slots: jax.Array, weights: jax.Array, table: jax.Array
 ) -> jax.Array:
-    """Reference XLA formulation (CPU tests, small graphs, fallback)."""
+    """One tree level: [M, W] slots and weights over table [N, C] -> [M, C]."""
     w = slots.shape[1]
     acc = None
     for j in range(w):
@@ -848,140 +185,25 @@ def gather_rows_sum_xla(
     return acc
 
 
-def _gather_kernel(c: int, slots_ref, wts_ref, table_ref, out_ref, buf, sems):
-    """Ring-pipelined row-gather-accumulate (one grid step = BM mini-rows).
-
-    ``table_ref`` is the FLATTENED [N*C] table in HBM; each slot row is
-    DMA'd into a 1-D VMEM ring buffer with NBUF copies in flight, hiding
-    per-DMA latency — the pattern XLA's gather lowering does not apply
-    (it runs ~145 GB/s; this kernel is bandwidth-limited instead).
-    Everything is 1-D because Mosaic requires dim-0 slices of tiled 2-D
-    VMEM buffers to be multiples of 8 sublanes; C is a multiple of 128
-    lanes so 1-D dynamic slices are always aligned.
-    """
-    import jax.lax as lax
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    bm, w = slots_ref.shape
-    nbuf = buf.shape[0] // c
-    total = bm * w
-
-    def dma(t, slot_val):
-        return pltpu.make_async_copy(
-            table_ref.at[pl.ds(slot_val * c, c)],
-            buf.at[pl.ds((t % nbuf) * c, c)],
-            sems.at[t % nbuf],
-        )
-
-    def issue(t):
-        m, j = t // w, t % w
-        dma(t, slots_ref[m, j]).start()
-
-    for t in range(nbuf):  # static warmup (total >= nbuf by construction)
-        issue(t)
-
-    def body(t, _):
-        m, j = t // w, t % w
-        dma(t, slots_ref[m, j]).wait()
-        row = buf[pl.ds((t % nbuf) * c, c)] * wts_ref[m, j]
-
-        @pl.when(j == 0)
-        def _():
-            out_ref[pl.ds(m * c, c)] = row
-
-        @pl.when(j != 0)
-        def _():
-            out_ref[pl.ds(m * c, c)] = out_ref[pl.ds(m * c, c)] + row
-
-        @pl.when(t + nbuf < total)
-        def _():
-            issue(t + nbuf)
-
-        return 0
-
-    lax.fori_loop(0, total, body, 0)
-
-
-def gather_rows_sum_pallas(
-    slots: jax.Array,
-    weights: jax.Array,
-    table: jax.Array,
-    block: int = _BM,
-    nbuf: int = 16,
-    interpret: bool = False,
-) -> jax.Array:
-    """Pallas row-gather-sum: [M, W] slots over table [N, C] -> [M, C].
-
-    C must be a multiple of 128 (lane alignment of the 1-D dynamic
-    slices); M must be a multiple of the row block.
-    """
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    m, w = slots.shape
-    n, c = table.shape
-    # 1-D dynamic slice offsets must be provably aligned to the f32
-    # native tile (8 sublanes x 128 lanes = 1024 elements)
-    assert c % 1024 == 0, c
-    # VMEM budget: out block + ring buffer; shrink the row block for wide C
-    bm = block
-    while bm > 8 and bm * c * 4 > 4 * 1024 * 1024:
-        bm //= 2
-    assert m % bm == 0, (m, bm)
-    grid = (m // bm,)
-    kernel = pl.pallas_call(
-        _ft.partial(_gather_kernel, c),
-        out_shape=jax.ShapeDtypeStruct((m * c,), table.dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((bm, w), lambda i: (i, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((bm, w), lambda i: (i, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.ANY),
-        ],
-        out_specs=pl.BlockSpec((bm * c,), lambda i: (i,), memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((nbuf * c,), table.dtype),
-            pltpu.SemaphoreType.DMA((nbuf,)),
-        ],
-        interpret=interpret,
-    )
-    return kernel(slots, weights, table.reshape(-1)).reshape(m, c)
-
-
 def tree_spmm(
     tree: ReductionTree,
     x: jax.Array,
     col_block: int = 4096,
-    impl: str = "auto",
-    interpret: bool = False,
 ) -> jax.Array:
-    """P @ x via the reduction tree; ``impl`` in {"auto", "pallas", "xla"}.
+    """P @ x via the reduction tree.
 
     Column-blocked so per-level partials ([M1, C_blk]) stay bounded at
-    any V.  Jit the CALLER; blocks unroll at trace time."""
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
+    any V; the blocks are balanced, so at most ``n_blocks - 1`` zero
+    columns pad the last one.  Jit the CALLER; blocks unroll at trace
+    time."""
     v, c = x.shape
-    if impl == "pallas":
-        # 1-D dynamic-slice alignment: blocks must be 1024-multiples
-        col_block = -(-min(col_block, max(c, 1024)) // 1024) * 1024
-    else:
-        col_block = min(col_block, c)
+    n_blocks = -(-c // min(col_block, c))
+    col_block = -(-c // n_blocks)
 
     def one_block(xb):
         cur = xb
-        for k in range(len(tree.levels)):
-            if impl == "pallas":
-                cur = gather_rows_sum_pallas(
-                    tree.levels[k], tree.weights[k], cur, interpret=interpret
-                )
-            else:
-                cur = gather_rows_sum_xla(
-                    tree.levels[k], tree.weights[k], cur
-                )
+        for lv, wt in zip(tree.levels, tree.weights):
+            cur = gather_rows_sum(lv, wt, cur)
         return cur[: tree.n_nodes]
 
     if c == col_block:
@@ -994,6 +216,126 @@ def tree_spmm(
         for lo in range(0, c + pad, col_block)
     ]
     return jnp.concatenate(blocks, axis=1)[:, :c]
+
+
+# ---------------------------------------------------------------------------
+# row-split CSR SpMM for Hopper: Pallas through Triton
+# ---------------------------------------------------------------------------
+
+
+@partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["row_ptr", "col", "vals"],
+    meta_fields=["n_nodes", "nbr_block"],
+)
+@dataclasses.dataclass(frozen=True)
+class CsrPlan:
+    """P as CSR with the row scale folded in: ``vals[k]`` is
+    w(i, col[k]) / Σw(i, ·).  ``col``/``vals`` carry ``nbr_block`` zero
+    slots past the end so every neighbour-block window stays in range."""
+
+    row_ptr: jax.Array  # int32[V + 1]
+    col: jax.Array      # int32[E + nbr_block]
+    vals: jax.Array     # float32[E + nbr_block]
+    n_nodes: int
+    nbr_block: int
+
+
+def build_csr_plan(
+    g: Graph, weighted: bool = False, nbr_block: int = 16
+) -> CsrPlan:
+    rp_h, col_h, w_h, _ = host_csr(g)
+    rp = np.asarray(rp_h).astype(np.int64)
+    col = np.asarray(col_h).astype(np.int32)
+    v = g.n_nodes
+    wsrc = (
+        np.asarray(w_h, np.float64)
+        if (weighted and w_h is not None)
+        else np.ones(len(col), np.float64)
+    )
+    row = np.repeat(np.arange(v), np.diff(rp))
+    denom = np.zeros(v, np.float64)
+    np.add.at(denom, row, wsrc)
+    vals = (wsrc / np.maximum(denom, 1e-300)[row]).astype(np.float32)
+    pad = np.zeros(nbr_block, np.int32)
+    return CsrPlan(
+        row_ptr=jnp.asarray(rp.astype(np.int32)),
+        col=jnp.asarray(np.concatenate([col, pad])),
+        vals=jnp.asarray(np.concatenate([vals, pad.astype(np.float32)])),
+        n_nodes=v,
+        nbr_block=nbr_block,
+    )
+
+
+def _csr_spmm_kernel(nbr_block, col_block, n_cols,
+                     rp_ref, col_ref, val_ref, x_ref, y_ref):
+    """One program: output row i, columns [j·BN, (j+1)·BN).  It walks row
+    i's neighbours ``nbr_block`` at a time, each step one [K, BN] gather
+    of table rows, and sums them in f32 registers; Triton pipelines the
+    loop's loads over ``num_stages``."""
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
+    j = pl.program_id(0)
+    i = pl.program_id(1)
+    lo = rp_ref[i]
+    hi = rp_ref[i + 1]
+    cols = j * col_block + jnp.arange(col_block)
+    cmask = cols < n_cols
+
+    def body(t, acc):
+        k0 = lo + t * nbr_block
+        kmask = k0 + jnp.arange(nbr_block) < hi
+        idx = plgpu.load(col_ref.at[pl.ds(k0, nbr_block)], mask=kmask,
+                         other=0)
+        w = plgpu.load(val_ref.at[pl.ds(k0, nbr_block)], mask=kmask,
+                       other=0.0)
+        rows = plgpu.load(
+            x_ref.at[idx[:, None], cols[None, :]],
+            mask=kmask[:, None] & cmask[None, :], other=0.0,
+        )
+        return acc + jnp.sum(rows.astype(jnp.float32) * w[:, None], axis=0)
+
+    n_steps = (hi - lo + nbr_block - 1) // nbr_block
+    acc = jax.lax.fori_loop(
+        0, n_steps, body, jnp.zeros((col_block,), jnp.float32)
+    )
+    plgpu.store(y_ref.at[i, pl.ds(j * col_block, col_block)],
+                acc.astype(y_ref.dtype), mask=cmask)
+
+
+def _csr_spmm_call(plan: CsrPlan, x: jax.Array, col_block: int,
+                   num_warps: int, num_stages: int, interpret: bool):
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plgpu
+
+    v, c = x.shape
+    return pl.pallas_call(
+        partial(_csr_spmm_kernel, plan.nbr_block, col_block, c),
+        out_shape=jax.ShapeDtypeStruct((plan.n_nodes, c), x.dtype),
+        grid=(-(-c // col_block), plan.n_nodes),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(
+            num_warps=num_warps, num_stages=num_stages
+        ),
+        interpret=interpret,
+        name="csr_spmm",
+    )(plan.row_ptr, plan.col, plan.vals, x)
+
+
+def csr_spmm(
+    plan: CsrPlan,
+    x: jax.Array,
+    col_block: int = 512,
+    num_warps: int = 8,
+    num_stages: int = 3,
+) -> jax.Array:
+    """P @ x on the GPU: [V, C] -> [V, C] in x's dtype, f32 sums.
+
+    Reads each neighbour's row segment once per product: (E + V)·C
+    elements moved, no intermediate levels.  ``col_block`` is a power of
+    two; column tails are masked."""
+    return _csr_spmm_call(plan, x, col_block, num_warps, num_stages, False)
 
 
 def spmm_oracle(g: Graph, x: np.ndarray, weighted: bool = False) -> np.ndarray:

@@ -6,7 +6,7 @@ Two layers, matching the two ways the reference keeps similarity rows:
   FixedMaxPQ per row (``utils/Print.java:25-53``).  Our
   :func:`topk_rows` is ``lax.top_k`` over a [B, V] tile, plus an optional
   streamed merge across tiles (:func:`merge_topk`) so no dense V x V state
-  ever exists — the TPU form of the reference's batched-source windows
+  ever exists — the device form of the reference's batched-source windows
   (``giraph/BatchSingleWalkVertex.java:108-133``).
 
 * bounded in-flight accumulators — ``lxctools/FixedCacheMap`` accumulates
@@ -71,8 +71,8 @@ def segment_topk(
     ``targets``/``values``: [T, N] items per source (target < 0 = skip).
     Returns (vals [T, k] descending, idx [T, k], -1 padded).
 
-    TPU-native accumulation: sort items by target (vectorised bitonic sort
-    beats serialized scatter-adds on TPU), prefix-sum the values, read run
+    Scatter-free accumulation: sort items by target (a vectorised sort
+    instead of conflicting scatter-adds), prefix-sum the values, read run
     totals at run boundaries, then ``lax.top_k`` — the whole UniWalk/TopSim
     "accumulate into a row then extract top-k" flow without materialising
     a [T, V] tile or issuing a single scatter.
@@ -122,8 +122,8 @@ def segment_sum_1d(
 
     ids < 0 are skipped.  Sort by id, prefix-sum, then *gather* each
     segment's boundary totals with two searchsorted lookups; the inverse
-    of the scatter-add formulation, entirely gather-based (TPU scatters
-    with many update rows serialise; gathers don't).
+    of the scatter-add formulation, entirely gather-based (scatters whose
+    update rows collide serialise; gathers don't).
     """
     n = ids.shape[0]
     safe = jnp.where(ids >= 0, ids, n_segments).astype(jnp.int32)
@@ -212,8 +212,8 @@ def segment_rows_sum(
     """Sum [N, D] rows by segment id — scatter-minimised.
 
     Returns (sums [n_segments, D], counts [n_segments]).  idx < 0 rows are
-    skipped.  XLA's scatter-add serialises per update row on TPU (the
-    classic embedding-gradient cliff); here the N-row scatter becomes:
+    skipped.  A scatter-add with many colliding update rows serialises
+    (the classic embedding-gradient cliff); here the N-row scatter becomes:
     sort by id, prefix-sum, read run totals at boundaries, compact the
     (<= n_segments) boundary rows forward, and do ONE small scatter of
     n_segments rows.
@@ -224,7 +224,6 @@ def segment_rows_sum(
     si = safe[order]
     sr = rows[order]
     csum = jnp.cumsum(sr, axis=0, dtype=jnp.float32)
-    ccnt = jnp.cumsum(jnp.ones((n,), jnp.float32))
     is_end = jnp.concatenate([si[:-1] != si[1:], jnp.ones((1,), bool)])
     pos = jnp.arange(n)
     prev_end_idx = jax.lax.cummax(
@@ -235,9 +234,11 @@ def segment_rows_sum(
         csum[jnp.maximum(prev_end_idx, 0)],
         0.0,
     )
-    base_c = jnp.where(prev_end_idx >= 0, ccnt[jnp.maximum(prev_end_idx, 0)], 0.0)
     totals = csum - base
-    counts = ccnt - base_c
+    # run length so far, from positions alone.  Not a cumsum of ones: XLA
+    # may constant-fold that reduce-window on the host in O(n²) time
+    # (minutes at n ~ 2e5 under SPMD partitioning)
+    counts = (pos - prev_end_idx).astype(jnp.float32)
     # compact boundary rows to the front (stable sort on end-id), then one
     # scatter of at most n_segments rows
     end_id = jnp.where(is_end & (si < n_segments), si, n_segments)
@@ -258,12 +259,12 @@ def segment_rows_sum_matmul(
     chunk: int = 8192,
     compute_dtype=jnp.bfloat16,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Segment row-sum as chunked one-hot matmuls — pure MXU work.
+    """Segment row-sum as chunked one-hot matmuls — pure matmul work.
 
     For each chunk of items: build onehot [C, S] (exact in bf16), then
-    sums += onehot^T @ rows (f32 accumulation).  O(N*S*D) flops but on the
-    MXU that beats both serialised scatters and sort+cumsum for the
-    embedding-gradient shapes (N~2e5, S~1e4, D~128).  Counts come from the
+    sums += onehot^T @ rows (f32 accumulation).  O(N*S*D) flops, all of it
+    dense matmul, at the embedding-gradient shapes (N~2e5, S~1e4, D~128);
+    not measured on a GPU against the sort-based form.  Counts come from the
     same matmul against a ones column.
     """
     n, d = rows.shape

@@ -7,7 +7,7 @@ the smallest above 1e-5 (``LE.py:62-77``).  The SimRank-LE visualiser
 (``IsoMap_LE/simRank.py:95-123``) does the same with W taken from SimRank
 top-k values and a D += 1e-6 guard.
 
-TPU form: pairwise distances and the affinity are batched matmuls; the
+Device form: pairwise distances and the affinity are batched matmuls; the
 generalised problem is symmetrised (D^-1 L ~ D^-1/2 L D^-1/2 with
 y = D^-1/2 u) so ``jnp.linalg.eigh`` applies.
 """

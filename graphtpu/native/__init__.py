@@ -1,7 +1,7 @@
 """Native (C++) host-side components, loaded via ctypes.
 
 The reference's native-performance pieces are the JVM kernels and gensim's C
-inner loop; our compute path is Pallas/XLA on TPU, and the host-side runtime
+inner loop; our compute path is JAX on the accelerator, and the host-side runtime
 (IO parsing, CSR sharding) gets C++ equivalents here.  Build with::
 
     make -C graphtpu/native

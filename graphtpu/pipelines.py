@@ -1,7 +1,7 @@
 """End-to-end pipelines — the reference CLI entry points, as functions.
 
 ``node2vec_pipeline`` is ``node2vec/src/main.py:104-114`` (read graph ->
-preprocess -> simulate walks -> learn embeddings -> save .emb), TPU-native:
+preprocess -> simulate walks -> learn embeddings -> save .emb), on the device:
 walks and SGNS run jitted on device; only file IO is host-side.
 """
 

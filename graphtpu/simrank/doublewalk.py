@@ -6,7 +6,7 @@ sim(v,w) = (1/SAMPLE^2) * sum over all walk pairs of C^(t+1), where t is
 the *first* step at which the two walks coincide (the scan breaks at the
 first -1 or first meeting).
 
-TPU form: all walks are one [V, S, STEP] tensor from a single batched
+Device form: all walks are one [V, S, STEP] tensor from a single batched
 scan.  The pairing loop becomes a blocked computation: for a (T1, T2)
 source-pair tile, equality tensors eq_t = (paths_i[:,None,:,None,t] ==
 paths_j[None,:,None,:,t]) are combined with a carried "already met" mask —
@@ -156,7 +156,7 @@ def doublewalk_simrank_rows(
         sim(v, w) = C / S^2 * sum_i cnt_v[i] * cnt_w[i]
 
     with cnt_v the endpoint histogram of v's S walks — one [n_src, V] x
-    [V, V] MXU matmul over histograms instead of the O(S^2) pair loop
+    [V, V] matmul over histograms instead of the O(S^2) pair loop
     (identical sums: sum_{s,s'} 1[a_s == b_s'] == <cnt_a, cnt_b>).
     ``step > 1`` falls back to the blocked pair computation with row
     tiles drawn from ``sources``.

@@ -8,7 +8,7 @@ each node at each step, then scores
 
 (``getSim :196-210``).  With the even-split branch dominating (sample >>
 degree) the endpoint mass converges to the exact t-step transition
-distribution M_t = e_v (D^-1 A)^t — so the TPU-native form is pure MXU:
+distribution M_t = e_v (D^-1 A)^t — so the device form is pure matmul:
 
     sim = sum_t C^t * M_t M_t^T,   M_t = M_{t-1} (D^-1 A)
 

@@ -17,7 +17,7 @@ message walk (``giraph/CombineBatchSingleWalkVertexReuse.mySendMsg
 :139-161``: avg = count/degree to every edge + remainder singles to random
 neighbours) — so this kernel *is* the distributed kernel.
 
-TPU form: the queue becomes a fixed-capacity walker-slot tensor per source
+Device form: the queue becomes a fixed-capacity walker-slot tensor per source
 tile — paths [T, W, L+1] with per-slot budget [T, W].  Child expansion is a
 prefix-sum slot assignment (segment expansion); the even-split branch reads
 CSR neighbour ``rank`` directly, the sampled branch draws uniformly.  Slot
@@ -178,9 +178,8 @@ def topsim_simrank(
 
     @jax.jit
     def run_tile_topk(src_tile: jax.Array, k: jax.Array):
-        # production path: sort-based segment top-k, zero scatters (the
-        # dense [T, V] scatter-add tile sat exactly on the TPU cliff where
-        # >10k update rows serialise)
+        # production path: sort-based segment top-k, zero scatters (a
+        # dense [T, V] scatter-add tile serialises its colliding rows)
         targets, vals = tile_items(src_tile, k)
         return segment_topk(targets, vals, cfg.topk, v)
 

@@ -1,4 +1,4 @@
-"""UniWalk — single-walk Monte-Carlo SimRank, batched on TPU.
+"""UniWalk — single-walk Monte-Carlo SimRank, batched on the device.
 
 Reference estimator (``simrank/SingleRandomWalk.java:53-106``): per source
 v, SAMPLE uniform walks of length 2*STEP; for step i, if the prefix
@@ -7,7 +7,7 @@ for all j < i), add
 
     C^i * deg(path[i]) / deg(path[2i]) / SAMPLE     to  sim[v][path[2i]].
 
-TPU form: sources are processed in tiles (the batched-source-window idea of
+Device form: sources are processed in tiles (the batched-source-window idea of
 ``giraph/BatchSingleWalkVertex.java:108-133``); each tile generates a
 [T, SAMPLE, 2*STEP+1] walk tensor with one scan, the first-meet test is a
 triangular mask over step prefixes, and increments scatter-add into a

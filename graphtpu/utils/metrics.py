@@ -4,7 +4,7 @@ The reference profiles distributed runs post-hoc by mining Giraph logs for
 per-superstep wall times and message counts (``utils/SuperstepTimes.java:
 14-45``, ``utils/LogProcess.java:19-45``).  Here metrics are first-class:
 every superstep/loop records wall time and byte counts directly, and
-``trace_profile`` wraps a region in a ``jax.profiler`` trace for on-TPU
+``trace_profile`` wraps a region in a ``jax.profiler`` trace for on-device
 inspection.
 """
 

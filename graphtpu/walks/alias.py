@@ -1,7 +1,7 @@
 """Walker alias method — host-side parity utility.
 
 The reference samples every hop through alias tables
-(``node2vec/src/node2vec.py:116-160``).  Our TPU kernels use CSR bisection
+(``node2vec/src/node2vec.py:116-160``).  Our device kernels use CSR bisection
 and rejection sampling instead (alias construction is inherently sequential
 per distribution and per-edge tables are the memory wall), but we keep a
 numpy implementation as the statistical oracle and for host-side tooling.

@@ -1,9 +1,9 @@
-"""Second-order (p, q)-biased node2vec walks, batched on TPU.
+"""Second-order (p, q)-biased node2vec walks, batched on the device.
 
 The reference materialises a Walker alias table per *directed edge*
 (``node2vec/src/node2vec.py:83-113``) — O(sum_dst deg(dst)) memory, the
 scaling wall called out in SURVEY.md §7.  We never materialise per-edge
-tables.  Two TPU-native strategies, statistically equivalent to the
+tables.  Two batched strategies, statistically equivalent to the
 reference bias rule (``node2vec.py:61-81``):
 
   w'(x) = w(cur,x)/p  if x == prev
@@ -16,8 +16,8 @@ reference bias rule (``node2vec.py:61-81``):
   bitmap for small V, cuckoo filter beyond), and cur's row pointer /
   degree are gathered once per hop and shared across the whole proposal
   panel — the walk step is ~2 gathers per proposal instead of round-2's
-  ~16 (per-proposal CSR bisection), which was the 100x second-order
-  throughput cliff (VERDICT r2 weak #1).  After ``max_trials`` panel
+  ~16 (per-proposal CSR bisection), the second-order throughput
+  cliff.  After ``max_trials`` panel
   slots the last proposal stands (acceptance >= min(1/p,1,1/q)/qmax per
   trial, so the residual bias is (1-a)^max_trials; the default panel
   width is sized from (p, q) to push that below 1e-3).
@@ -70,9 +70,9 @@ def _second_order_step_rejection(
     # stops as soon as the not-yet-accepted fraction falls below the same
     # residual the fixed panel is sized for (default_max_trials: 1e-3) —
     # so the gather traffic tracks the OBSERVED rejection rate instead of
-    # the adversarial all-triangle worst case (VERDICT r3 #6: the fixed
-    # T=24 panel at p=q=0.25 paid 24 gathers/hop when nearly every first
-    # trial accepts).  Chunks are iid trials, so "first accepted proposal
+    # the adversarial all-triangle worst case (the fixed T=24 panel at
+    # p=q=0.25 pays 24 gathers/hop when nearly every first trial
+    # accepts).  Chunks are iid trials, so "first accepted proposal
     # across chunks" is distributionally identical to the one-shot panel;
     # walkers still unaccepted when the loop exits keep their last
     # proposal — the same fallback, and the loop only exits early when
@@ -83,8 +83,7 @@ def _second_order_step_rejection(
     # Friendly regimes (T <= 10) run the full panel in ONE round —
     # identical work to the pre-adaptive sampler (any chunking there
     # adds serialised gather rounds whenever >0.1% of walkers reject a
-    # whole chunk, which at p=1,q=2 happens every hop: 0.5^8 ≈ 0.4%;
-    # measured 5.0 -> 3.9 M hops/s).  Adversarially wide panels
+    # whole chunk, which at p=1,q=2 happens every hop: 0.5^8 ≈ 0.4%).  Adversarially wide panels
     # (p=q=0.25 ⇒ T=24) run 8-trial chunks with the early exit, so
     # their typical cost drops to one round instead of always paying T.
     chunk = t if t <= 10 else 8
@@ -189,7 +188,7 @@ def node2vec_walks(
     ``default_max_trials``.  ``eset`` may be passed when calling under jit
     with a traced graph; by default it is built (and cached) host-side.
     ``sort_gather``: sort the frontier by current node each hop so the
-    proposal-panel CSR gathers are monotonic over HBM (statistically
+    proposal-panel CSR gathers are monotonic in memory (statistically
     identical walks; see walks/walker.py).
     """
     starts = starts.astype(jnp.int32)

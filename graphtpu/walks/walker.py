@@ -1,6 +1,6 @@
 """First-order random walks, batched.
 
-TPU-native form of the reference walk loops: the Java MC kernels step one
+Batched form of the reference walk loops: the Java MC kernels step one
 walker at a time through ``randNeighbor`` (``simrank/SingleRandomWalk.java:
 53-72``); here a walk batch is an int32[B] frontier advanced by ``lax.scan``
 with one CSR gather per step, producing the whole [B, L+1] walk tensor on
@@ -36,7 +36,7 @@ def uniform_walks(
 
     ``sort_gather``: sort the frontier by current node before each hop's
     CSR gathers and invert after — the row_ptr/deg/col reads become
-    MONOTONIC over HBM (quasi-streaming) instead of random.  Unlike
+    MONOTONIC in device memory (quasi-streaming) instead of random.  Unlike
     relabeling this helps even expander graphs whenever the batch is
     large relative to V·(page size): at the 10M flagship shape, 5M
     sorted walkers land ~16 slots apart in the 320 MB ``col`` array.

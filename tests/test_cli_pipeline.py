@@ -199,3 +199,38 @@ def test_cli_simrank_relabel_maps_back(tmp_path, graph_file):
         for k in set(d0) & set(d1):
             assert abs(d0[k] - d1[k]) < 1e-5
         assert len(set(d0) & set(d1)) >= len(d0) - 2
+
+
+@pytest.mark.parametrize("relabel", ["none", "rcm"])
+def test_cli_simrank_spmm_matches_dense(tmp_path, graph_file, relabel):
+    """``simrank --engine spmm`` writes the same top-k as ``--engine
+    dense`` (scores to the two f32 engines' 2e-5), relabelled or not."""
+    sims = {}
+    for engine in ("dense", "spmm"):
+        out = str(tmp_path / engine)
+        assert cli_main([
+            "simrank", "--input", graph_file, "--output", out,
+            "--engine", engine, "--relabel", relabel,
+            "--iterations", "4", "--topk", "6",
+        ]) == 0
+        sims[engine] = read_sim_file(out + ".sim.txt")
+    assert sims["dense"].keys() == sims["spmm"].keys()
+    for src, pairs in sims["dense"].items():
+        want = np.array([v for _, v in pairs])
+        got = np.array([v for _, v in sims["spmm"][src]])
+        np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_rmat_unique_edges_exact_count_and_seeded():
+    from graphtpu.bench.generators import rmat_unique_edges
+
+    e = rmat_unique_edges(1000, 5000, seed=3)
+    assert e.shape == (5000, 2)
+    assert e.min() >= 0 and e.max() < 1000
+    assert np.all(e[:, 0] != e[:, 1])
+    key = np.minimum(e[:, 0], e[:, 1]) * 1000 + np.maximum(e[:, 0], e[:, 1])
+    assert len(np.unique(key)) == 5000
+    np.testing.assert_array_equal(e, rmat_unique_edges(1000, 5000, seed=3))
+    assert not np.array_equal(e, rmat_unique_edges(1000, 5000, seed=4))
+    with pytest.raises(ValueError):
+        rmat_unique_edges(10, 100, seed=0)  # only 45 pairs exist

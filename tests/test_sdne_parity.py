@@ -1,4 +1,4 @@
-"""SDNE activation parity (BASELINE quality target, VERDICT #9).
+"""SDNE activation parity (BASELINE quality target).
 
 A pure-numpy re-execution of the reference TF graph formulas
 (``SDNE/SDNE.py:66-122``): per-layer activations, the embedding tensor

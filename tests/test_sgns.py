@@ -143,6 +143,40 @@ def test_segment_rows_sum_oracle():
     np.testing.assert_array_equal(np.asarray(counts), wantc)
 
 
+def test_segment_rows_sum_has_no_constant_prefix_sum():
+    """Every cumulative op takes traced data.  A prefix sum of a constant
+    is a reduce-window XLA may fold on the host in O(n²) time, which
+    stalls compilation at embedding-gradient sizes."""
+    from jax.extend.core import Literal
+
+    from graphtpu.kernels.topk import segment_rows_sum
+
+    def cumulative_ops(jaxpr, consts) -> int:
+        """Count cumulative ops, asserting none reads a constant; nested
+        jits see which of their inputs are constants."""
+        consts, n = set(consts), 0
+        for eqn in jaxpr.eqns:
+            const_in = [isinstance(v, Literal) or v in consts
+                        for v in eqn.invars]
+            sub = eqn.params.get("jaxpr")
+            if sub is not None:
+                sub = getattr(sub, "jaxpr", sub)
+                n += cumulative_ops(
+                    sub, [v for v, c in zip(sub.invars, const_in) if c])
+            if eqn.primitive.name.startswith("cum"):
+                n += 1
+                assert not any(const_in), eqn
+            elif all(const_in):
+                consts.update(eqn.outvars)
+        return n
+
+    jaxpr = jax.make_jaxpr(lambda i, r: segment_rows_sum(i, r, 50))(
+        jnp.zeros((4096,), jnp.int32), jnp.zeros((4096, 8), jnp.float32)
+    ).jaxpr
+    # the row prefix sum and the run-start cummax
+    assert cumulative_ops(jaxpr, ()) == 2
+
+
 def test_manual_grads_match_autodiff_shared_negs():
     from graphtpu.models.sgns import sgns_manual_grads, sgns_loss
 

@@ -1,4 +1,5 @@
-"""Gather-reduction-tree SpMM (kernels/spmm.py) parity tests."""
+"""SpMM (kernels/spmm.py) parity tests: the XLA gather tree, the Triton
+CSR kernel in interpret mode, and the SimRank engine built on them."""
 
 import jax
 import jax.numpy as jnp
@@ -8,11 +9,23 @@ import pytest
 import graphtpu
 from graphtpu.core.config import SimRankConfig
 from graphtpu.kernels.spmm import (
+    CsrPlan,
+    ReductionTree,
+    _csr_spmm_call,
+    build_csr_plan,
     build_reduction_tree,
+    csr_spmm,
     spmm_oracle,
     tree_spmm,
 )
-from graphtpu.simrank.exact import exact_simrank, exact_simrank_spmm
+from graphtpu.simrank import exact as exact_mod
+from graphtpu.simrank.exact import (
+    directed_simrank_reference_oracle,
+    exact_simrank,
+    exact_simrank_reference_oracle,
+    exact_simrank_spmm,
+    weighted_simrank_reference_oracle,
+)
 
 
 def _graph(v=67, e=600, seed=0, weighted=False, hub=True):
@@ -57,76 +70,6 @@ def test_tree_spmm_column_blocking():
     np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-def test_pallas_gather_rows_sum_interpret():
-    """The Pallas ring-DMA kernel must equal the XLA formulation
-    (interpreter mode on CPU; the real-TPU run is covered by
-    tools/bench_spmm.py)."""
-    from graphtpu.kernels.spmm import (
-        gather_rows_sum_pallas,
-        gather_rows_sum_xla,
-    )
-
-    rng = np.random.default_rng(3)
-    m, w, n, c = 256, 8, 50, 1024
-    slots = jnp.asarray(rng.integers(0, n, (m, w)).astype(np.int32))
-    wts = jnp.asarray(rng.random((m, w)).astype(np.float32))
-    table = jnp.asarray(rng.random((n, c)).astype(np.float32))
-    got = np.asarray(
-        gather_rows_sum_pallas(slots, wts, table, interpret=True)
-    )
-    want = np.asarray(gather_rows_sum_xla(slots, wts, table))
-    np.testing.assert_allclose(got, want, rtol=1e-5)
-
-
-@pytest.mark.parametrize("weighted", [False, True])
-def test_spmv_stream_plan_matches_oracle(weighted):
-    from graphtpu.kernels.spmm import build_spmv_stream, spmv_stream_xla
-
-    g = _graph(weighted=weighted)
-    stream = build_spmv_stream(g, weighted=weighted, block_items=64)
-    rng = np.random.default_rng(4)
-    x = rng.random((g.n_nodes, 33)).astype(np.float32)
-    got = np.asarray(spmv_stream_xla(stream, jnp.asarray(x)))
-    want = spmm_oracle(g, x, weighted=weighted)
-    np.testing.assert_allclose(got, want, atol=1e-5)
-    assert np.all(got[g.n_nodes - 1] == 0)  # isolated node -> zero row
-
-
-@pytest.mark.parametrize("mode", ["kahan", "fast"])
-def test_spmv_pallas_streaming_interpret(mode):
-    """The streaming kernels (ring DMAs + run accumulation + row flush
-    DMAs) must match the oracle, including rows spanning item blocks,
-    isolated rows, and the final-flush path."""
-    from graphtpu.kernels.spmm import build_spmv_stream, spmv_pallas
-
-    g = _graph(v=40, e=300, hub=True)  # hub row spans many 16-item blocks
-    stream = build_spmv_stream(g, block_items=16)
-    rng = np.random.default_rng(5)
-    x = rng.random((g.n_nodes, 1024)).astype(np.float32)
-    got = np.asarray(
-        spmv_pallas(stream, jnp.asarray(x), interpret=True, mode=mode)
-    )
-    want = spmm_oracle(g, x)
-    np.testing.assert_allclose(got, want, atol=1e-5)
-    assert np.all(got[g.n_nodes - 1] == 0)
-
-
-@pytest.mark.parametrize("mode", ["kahan", "fast"])
-def test_spmv_pallas_weighted_interpret(mode):
-    from graphtpu.kernels.spmm import build_spmv_stream, spmv_pallas
-
-    g = _graph(v=36, e=200, weighted=True)
-    stream = build_spmv_stream(g, weighted=True, block_items=16)
-    assert not stream.uniform
-    rng = np.random.default_rng(7)
-    x = rng.random((g.n_nodes, 1024)).astype(np.float32)
-    got = np.asarray(
-        spmv_pallas(stream, jnp.asarray(x), interpret=True, mode=mode)
-    )
-    want = spmm_oracle(g, x, weighted=True)
-    np.testing.assert_allclose(got, want, atol=1e-5)
-
-
 @pytest.mark.parametrize("weighted", [False, True])
 def test_exact_simrank_spmm_matches_dense(small_random, weighted):
     g = small_random
@@ -138,90 +81,124 @@ def test_exact_simrank_spmm_matches_dense(small_random, weighted):
     np.testing.assert_allclose(sparse, dense, atol=2e-5)
 
 
-@pytest.mark.parametrize("mode", ["kahan", "fast"])
-def test_exact_simrank_spmm_flat_staged_pallas(small_random, mode):
-    """The TPU production path — flat iterates, panel transpose, flat
-    diag pinning — run under pallas interpret mode so its staging logic
-    (not just the kernel) is exercised off-hardware."""
-    g = small_random
-    cfg = SimRankConfig(iterations=3)
-    dense = np.asarray(exact_simrank(g, cfg))
-    staged = np.asarray(
-        exact_simrank_spmm(g, cfg, impl="pallas", spmv_mode=mode,
-                           interpret=True)
+
+
+@pytest.mark.parametrize(
+    "c,col_block", [(1, 4096), (7, 3), (64, 16), (100, 48), (129, 64), (33, 33)]
+)
+def test_tree_spmm_widths_and_blocks(c, col_block):
+    """Any width and column block, dividing or not (balanced blocks pad
+    the last one with zero columns that are cut off again)."""
+    g = _graph(seed=c)
+    tree = build_reduction_tree(g, width=8)
+    x = np.random.default_rng(c).random((g.n_nodes, c)).astype(np.float32)
+    got = np.asarray(
+        jax.jit(lambda x: tree_spmm(tree, x, col_block=col_block))(
+            jnp.asarray(x)
+        )
     )
-    np.testing.assert_allclose(staged, dense, atol=2e-5)
+    assert got.shape == (g.n_nodes, c)
+    np.testing.assert_allclose(got, spmm_oracle(g, x), atol=1e-5)
 
 
-# ------------------------------------------------------- coalesced segments
+def _simrank_case(kind):
+    """(graph, float64 oracle scores, weighted flag) for one graph kind."""
+    if kind == "weighted":
+        g = _graph(v=24, e=90, seed=5, weighted=True, hub=False)
+        return g, weighted_simrank_reference_oracle(g, 0.6, 3), True
+    if kind == "directed":
+        rng = np.random.default_rng(6)
+        edges = rng.integers(0, 20, size=(70, 2))
+        edges = edges[edges[:, 0] != edges[:, 1]]
+        g = graphtpu.build_graph(edges, n_nodes=20, directed=True)
+        return g, directed_simrank_reference_oracle(g, 0.6, 3), False
+    if kind == "hub":  # hub degree > width**2: a 3-level tree
+        g = _graph(v=40, e=120, seed=7, hub=True)
+        assert len(build_reduction_tree(g, width=4).levels) >= 3
+        return g, exact_simrank_reference_oracle(g, 0.6, 3), False
+    g = _graph(v=24, e=60, seed=8, hub=False)  # node 23 isolated
+    assert int(np.asarray(g.deg)[-1]) == 0
+    return g, exact_simrank_reference_oracle(g, 0.6, 3), False
+
+
+@pytest.mark.parametrize("kind", ["weighted", "directed", "hub", "isolated"])
+def test_exact_simrank_spmm_matches_float64_oracle(kind):
+    g, want, weighted = _simrank_case(kind)
+    got = np.asarray(
+        exact_simrank_spmm(
+            g, SimRankConfig(c=0.6, iterations=3), weighted=weighted, width=4
+        )
+    )
+    np.testing.assert_allclose(got, want, atol=2e-6)
+    assert np.all(np.diag(got) == 0)
+
+
+def test_exact_simrank_spmm_bf16_iterates_keep_ranking(small_random):
+    """bf16 stored iterates (f32 sums) keep each row's top-5 neighbours
+    close to the f32 run; bf16 holds ~3 decimal digits, so ranking is
+    the contract, not values."""
+    cfg = SimRankConfig(iterations=4)
+    f32 = np.asarray(exact_simrank_spmm(small_random, cfg))
+    b16 = np.asarray(
+        exact_simrank_spmm(small_random, cfg, dtype=jnp.bfloat16)
+    ).astype(np.float32)
+    assert np.abs(b16 - f32).max() < 1e-2
+    k = 5
+    agree = np.mean([
+        len(set(np.argsort(-f32[r])[:k]) & set(np.argsort(-b16[r])[:k])) / k
+        for r in range(f32.shape[0])
+    ])
+    assert agree >= 0.8, agree
 
 
 @pytest.mark.parametrize("weighted", [False, True])
-@pytest.mark.parametrize("k", [2, 4])
-def test_spmv_segments_plan_matches_oracle(weighted, k):
-    """Coalesced k-row segment streams (build_spmv_segments) compute the
-    same product as per-item streams — zero-weight padding rows and the
-    table-edge clamp included."""
-    from graphtpu.kernels.spmm import build_spmv_segments, spmv_stream_xla
-
-    g = _graph(weighted=weighted)
-    seg = build_spmv_segments(g, weighted=weighted, block_items=64, k=k)
-    assert seg.seg_k == k
-    rng = np.random.default_rng(4)
-    x = rng.random((g.n_nodes, 33)).astype(np.float32)
-    got = np.asarray(spmv_stream_xla(seg, jnp.asarray(x)))
-    want = spmm_oracle(g, x, weighted=weighted)
-    np.testing.assert_allclose(got, want, atol=1e-5)
-    assert np.all(got[g.n_nodes - 1] == 0)  # isolated node -> zero row
-
-
-def test_spmv_segments_fewer_dmas_after_relabel():
-    """BFS relabeling raises the adjacent-slot fraction, and the segment
-    plan converts that into fewer DMA items (the whole point)."""
-    from graphtpu.core.reorder import bfs_order, relabel_graph
-    from graphtpu.kernels.spmm import build_spmv_segments, build_spmv_stream
-
-    # a 1-D lattice-ish graph scrambled by random labels: near-perfect
-    # locality exists but only after relabeling recovers it
-    v = 400
-    rng = np.random.default_rng(11)
-    base = np.stack([np.arange(v - 1), np.arange(1, v)], 1)
-    extra = np.stack([np.arange(v - 2), np.arange(2, v)], 1)
-    perm = rng.permutation(v)
-    edges = perm[np.concatenate([base, extra])]
-    g = graphtpu.build_graph(edges, n_nodes=v)
-    g2, _ = relabel_graph(g, bfs_order(g))
-    items = build_spmv_stream(g2, block_items=8).n_items
-    segs = build_spmv_segments(g2, block_items=8, k=2).n_items
-    assert segs < 0.65 * items, (segs, items)
-
-
-@pytest.mark.parametrize("mode", ["kahan", "fast"])
-def test_spmv_pallas_segments_interpret(mode):
-    from graphtpu.kernels.spmm import build_spmv_segments, spmv_pallas
-
-    g = _graph(v=40, e=300, hub=True)
-    seg = build_spmv_segments(g, block_items=16, k=2)
-    rng = np.random.default_rng(5)
-    x = rng.random((g.n_nodes, 1024)).astype(np.float32)
+@pytest.mark.parametrize("c,col_block,nbr_block", [
+    (33, 16, 4),   # masked column tail, several neighbour steps per row
+    (64, 64, 16),  # one column block
+    (5, 8, 8),     # block wider than the matrix
+])
+def test_csr_spmm_interpret_matches_oracle(weighted, c, col_block, nbr_block):
+    """The Triton CSR kernel's program, run by the Pallas interpreter,
+    against the numpy product (hub row, isolated row, weights)."""
+    g = _graph(v=40, e=300, seed=c, weighted=weighted, hub=True)
+    plan = build_csr_plan(g, weighted=weighted, nbr_block=nbr_block)
+    x = np.random.default_rng(c).random((g.n_nodes, c)).astype(np.float32)
     got = np.asarray(
-        spmv_pallas(seg, jnp.asarray(x), interpret=True, mode=mode)
+        _csr_spmm_call(plan, jnp.asarray(x), col_block, 4, 2, True)
     )
-    want = spmm_oracle(g, x)
-    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(
+        got, spmm_oracle(g, x, weighted=weighted), atol=1e-5
+    )
     assert np.all(got[g.n_nodes - 1] == 0)
 
 
-@pytest.mark.parametrize("mode", ["kahan", "fast"])
-def test_exact_simrank_spmm_segments_staged(small_random, mode, monkeypatch):
-    """The full staged pipeline on coalesced streams (GRAPHTPU_SPMV_SEG),
-    table_scale diag-pin fusion included."""
-    monkeypatch.setenv("GRAPHTPU_SPMV_SEG", "2")
-    g = small_random
-    cfg = SimRankConfig(iterations=3)
-    dense = np.asarray(exact_simrank(g, cfg))
-    staged = np.asarray(
-        exact_simrank_spmm(g, cfg, impl="pallas", spmv_mode=mode,
-                           interpret=True)
+def test_csr_plan_layout():
+    """Row scale folded into vals; ``nbr_block`` zero slots past the end."""
+    g = _graph(v=30, e=100, seed=3, weighted=True, hub=False)
+    plan = build_csr_plan(g, weighted=True, nbr_block=8)
+    rp, vals = np.asarray(plan.row_ptr), np.asarray(plan.vals)
+    assert plan.col.shape == plan.vals.shape == (g.n_edges + 8,)
+    assert np.all(vals[g.n_edges:] == 0)
+    sums = np.add.reduceat(vals[: g.n_edges], rp[:-1][np.diff(rp) > 0])
+    np.testing.assert_allclose(sums, 1.0, rtol=1e-5)
+
+
+@pytest.mark.parametrize("backend,kind", [("cpu", ReductionTree),
+                                          ("gpu", CsrPlan)])
+def test_build_spmm_plan_picks_by_backend(monkeypatch, backend, kind):
+    """The GPU takes the Triton CSR plan; any other backend the tree."""
+    monkeypatch.setattr(exact_mod, "spmm_backend", lambda: backend)
+    plan = exact_mod.build_spmm_plan(_graph(hub=False))
+    assert isinstance(plan, kind)
+
+
+@pytest.mark.gpu
+def test_csr_spmm_compiled_matches_tree(gpu):
+    """The kernel as compiled for the card against the XLA tree."""
+    g = _graph(v=300, e=4000, seed=9, hub=True)
+    x = jnp.asarray(
+        np.random.default_rng(9).random((g.n_nodes, 700)).astype(np.float32)
     )
-    np.testing.assert_allclose(staged, dense, atol=2e-5)
+    got = jax.jit(csr_spmm)(build_csr_plan(g), x)
+    want = jax.jit(tree_spmm)(build_reduction_tree(g), x)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-5)

@@ -1,5 +1,5 @@
 """Per-device memory ceiling of the sharded SpMM SimRank, asserted from
-the COMPILED executable (VERDICT r3 #7): XLA's buffer assignment must
+the COMPILED executable: XLA's buffer assignment must
 show O(V^2/n_dev) argument/output blocks and a bounded ring-buffer
 constant — not just source-level sharding annotations.
 """

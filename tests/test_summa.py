@@ -42,7 +42,7 @@ def test_summa_weighted_matches_single_device():
 
 
 def test_summa_bf16_iterates(small_random):
-    """fast16 form: bf16 blocks on every wire (ring + reduce + a2a), f32
+    """bf16 form: bf16 blocks on every wire (ring + reduce + a2a), f32
     tree accumulation — top-k structure survives."""
     g = small_random
     cfg = SimRankConfig(iterations=3)
@@ -51,7 +51,7 @@ def test_summa_bf16_iterates(small_random):
     got = np.asarray(
         summa_simrank_spmm(g, mesh, cfg, dtype=jnp.bfloat16)
     ).astype(np.float32)
-    # bf16 has ~3 decimal digits; rank agreement is the fast16 contract
+    # bf16 has ~3 decimal digits; rank agreement is the bf16 contract
     agree = 0
     for i in range(g.n_nodes):
         agree += len(

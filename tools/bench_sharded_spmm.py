@@ -1,4 +1,4 @@
-"""Scaling curve for the partitioned sparse SimRank (VERDICT r2 #4).
+"""Scaling curve for the partitioned sparse SimRank.
 
 Runs ``sharded_simrank_spmm`` on virtual CPU meshes of 1/2/4/8 devices
 over the same graph and reports per-iteration wall time and strong-
@@ -7,7 +7,7 @@ BASELINE "≥90% scaling at 2 hosts" target: the virtual devices share one
 host's cores, so compute barely scales, but the numbers expose the
 COMMUNICATION overhead of the ring rotation (time(n)/time(1) - 1 at
 fixed total work) and any serialisation bugs.  On real multi-chip
-hardware the same program rides ICI.
+hardware the same program rides the device interconnect.
 
 Usage: python tools/bench_sharded_spmm.py [V] [E] [iters]
 """

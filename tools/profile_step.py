@@ -1,4 +1,4 @@
-"""Profile one SGNS step on the TPU and print the top ops by duration.
+"""Profile one SGNS step on the device and print the top ops by duration.
 
 Writes a jax.profiler trace, then parses the perfetto trace proto/json to
 rank XLA ops — usable without TensorBoard.
@@ -12,7 +12,7 @@ import sys
 import time
 from collections import defaultdict
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 import jax.numpy as jnp

@@ -1,4 +1,4 @@
-"""1M-vertex windowed MC SimRank end-to-end on the real chip (VERDICT #2).
+"""1M-vertex windowed MC SimRank end-to-end on one device.
 
 Matches the reference's distributed regime structure: generate a large
 graph (GraphGeneratorBf's role -> native/generate.cpp), run UniWalk MC
@@ -11,8 +11,7 @@ checkpoint to demonstrate the fault-tolerance path at scale.
 Usage: python tools/run_1m_simrank.py [V] [avg_deg] [sample] [window] [budget_s]
 
 ``budget_s`` stops CLEANLY between windows (the durable cursor resumes
-next invocation) — killing a TPU client mid-execution crashes the remote
-worker, so the budget must expire before any external timeout.
+next invocation), so a run can be cut without losing finished windows.
 """
 
 import json
@@ -34,6 +33,9 @@ def main():
     from graphtpu.dist.windows import windowed_topk_sweep
     from graphtpu.native import native_generate_graph
     from graphtpu.simrank.uniwalk import _uniwalk_tile_topk
+    from graphtpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     v = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
     avg_deg = int(sys.argv[2]) if len(sys.argv) > 2 else 8
@@ -43,7 +45,9 @@ def main():
     deadline = time.time() + budget_s
     step, topk, tile = 3, 20, 8192
 
-    path = f"/tmp/g_{v}_{avg_deg}.txt"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    os.makedirs(os.path.join(repo, "results"), exist_ok=True)
+    path = os.path.join(repo, "results", f"g_{v}_{avg_deg}.txt")
     if not os.path.exists(path):
         t0 = time.time()
         n = native_generate_graph(
@@ -90,7 +94,7 @@ def main():
         stats["wall"] += time.time() - t0
         return out_v, out_i
 
-    out_dir = f"/tmp/sweep_{v}"
+    out_dir = os.path.join(repo, "results", f"sweep_{v}")
     key = jax.random.key(7)
 
     # phase 1: first few windows, then stop (simulated failure)

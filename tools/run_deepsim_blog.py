@@ -1,4 +1,4 @@
-"""DeepSim at the reference budget on BlogCatalog (VERDICT r3 #8).
+"""DeepSim at the reference budget on BlogCatalog.
 
 Reference flow (``DeepSim/src/main.py:262-289`` + ``DeepSim.py:121-176``):
 read the SimRank engine's top-20 ``.sim.txt`` (we generate it with the
@@ -21,8 +21,11 @@ import numpy as np
 
 BLOG_EDGES = "/root/reference/DeepSim/lshrank_data/realdata/blog.txt"
 BLOG_MAT = "/root/reference/node2vec/src/blogcatalog.mat"
-SIM_PATH = "/tmp/blog_simrank_naive_top20.sim.txt"
-WALKS_CACHE = "/tmp/deepsim_blog_walks.txt"
+RESULTS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "results"
+)
+SIM_PATH = os.path.join(RESULTS, "blog_simrank_naive_top20.sim.txt")
+WALKS_CACHE = os.path.join(RESULTS, "deepsim_blog_walks.txt")
 
 
 def main():
@@ -35,6 +38,10 @@ def main():
     from graphtpu.io.simfile import write_sim_file
     from graphtpu.pipelines_deepsim import deepsim_pipeline
     from graphtpu.simrank.exact import exact_simrank
+    from graphtpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    os.makedirs(RESULTS, exist_ok=True)
 
     steps = int(sys.argv[1]) if len(sys.argv) > 1 else 50_000
     fractions = (
@@ -84,7 +91,7 @@ def main():
         for k, v in res.items()
     }
     print(json.dumps({"steps": steps, "f1": summary}))
-    with open("/tmp/deepsim_blog_f1.json", "w") as f:
+    with open(os.path.join(RESULTS, "deepsim_blog_f1.json"), "w") as f:
         json.dump({"steps": steps, "f1": summary}, f)
 
 

@@ -79,6 +79,9 @@ def main():
         sweep_topsim_dev,
         sweep_uniwalk,
     )
+    from graphtpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     specs = {
         "uniwalk": (sweep_uniwalk, REFERENCE_SAMPLE_GRID),
@@ -104,7 +107,7 @@ def main():
         sys.argv[2]
         if len(sys.argv) > 2
         else os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "results", "sweeps_r4.jsonl")
+            os.path.abspath(__file__))), "results", "sweeps.jsonl")
     )
     want = set(sys.argv[3:]) or set(DATASETS)
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
@@ -129,9 +132,8 @@ def main():
             engines = tuple(a for a in engines if a in only_algs)
         # Load the graph BEFORE the resume precheck so both it and the
         # authoritative per-point check key on the same min(n_src,
-        # g.n_nodes) — the old v_hint shortcut could skip a dataset with
-        # remaining points whenever the hint drifted from the true node
-        # count (ADVICE r4).  Graph loads are host-side and cheap next
+        # g.n_nodes) — a node-count hint could drift from the true node
+        # count and skip a dataset with remaining points.  Graph loads are host-side and cheap next
         # to a single grid point.
         g = graphtpu.read_edgelist_graph(path, n_nodes=n_nodes)
         del v_hint
